@@ -7,16 +7,29 @@ is not 0):
 
   build      builds the CUDA kernels of `sednet_tpu_torch/csrc/` with nvcc
              for sm_90a and prints the card's name and power limit;
-  kernels    holds each kernel against its plain PyTorch version on the
-             card at the headline shapes, and times kernel, plain version,
-             one library call, and the bound the card sets;
+  kernels    holds each kernel of the headline against its plain PyTorch
+             version on the card at the headline shapes, and times kernel,
+             plain version, one library call, and the bound the card sets;
   headline   the port's main path: 8 eval clouds of 10000 points through
              the trained `inst` weights of `checkpoints/bench_10k.npz`
              (`segment_batch`: forward, then guarded mean-shift per shape),
              with every kernel's launch count from one run, shapes/s, and
              inst/type IoU held against the JAX package's numbers;
   cluster_batch  the batched clustering path (kernel K2b) on the same
-             embeddings, held against the per-shape path.
+             embeddings, held against the per-shape path;
+  kernels_slice2  the same for the kernel cases of the reference-default
+             eval: K2b and K3 on the 140-d HPNet-enriched embeddings of the
+             headline batch, K4 at the encoder's three layer shapes (with
+             the time of the index route it replaces: K1 plus the gather);
+  predict    the reference-default eval (`predict_shapes`, `bench.py:327`'s
+             config: both models, HPNet spectral enrichment, `cluster_batch`
+             at E = 140, chamfer-recall metrics) on the same 8 clouds, with
+             shapes/s, launches, peak memory, and inst/type IoU and recall
+             held against the JAX package's numbers, a stage breakdown and
+             one run under torch.profiler (device busy share, top kernels);
+  predict_fused  the same with `fused_encoder=True` (kernel K4), held to the
+             same numbers and to the `predict` run's labels;
+  predict_fold5drop  the same with the type model's fold5drop votes.
 
 The line before the last is the `kernels` summary, the last line the
 device record. Without a CUDA device, or outside a checkout of the repo,
@@ -39,6 +52,57 @@ REF_INST_IOU = [0.9104403419368645, 0.9029878112073358, 0.8623391918828099,
                 0.9253762065927553, 0.6680413992171479]
 REF_TYPE_IOU = [1.0] * 8
 IOU_TOL = 0.03  # bandwidth subsamples come from different RNGs
+
+# Per-shape usecd metrics of the JAX package's reference-default eval
+# (`predict_shapes` under bench.py:327's config) on the same 8 clouds, shape
+# i under fold_in(PRNGKey(key), i), on the CPU:
+#   JAX_PLATFORMS=cpu python scripts/jax_predict_reference.py
+REF_PREDICT = {
+    "key7": {
+        "inst_iou": [0.9117510484060687, 0.9121914926798697,
+                     0.9744203268616474, 0.8975523546892954,
+                     0.9952038863374334, 0.9629126849294672,
+                     0.9846534178290406, 0.9000300029952001],
+        "type_iou": [1.0] * 8,
+        "inst_recall": [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.8333333333333334],
+    },
+    "key8": {
+        "inst_iou": [0.9117510484060688, 0.9034880112873648,
+                     0.9748202468776418, 0.8898570170758298,
+                     0.9937041862774544, 0.962905267276823,
+                     0.9253767434782184, 0.6675414991971548],
+        "type_iou": [1.0] * 8,
+        "inst_recall": [1.0] * 8,
+    },
+    "key9": {
+        "inst_iou": [0.9117510484060687, 0.904388371431417,
+                     0.9752201668936363, 0.8960565486058124,
+                     0.9939041462854515, 0.9630624703060403,
+                     0.9252773003596827, 0.6680413992171479],
+        "type_iou": [1.0] * 8,
+        "inst_recall": [1.0] * 8,
+    },
+}
+REF_PREDICT_FOLD5 = {
+    "inst_iou": [0.9117510484060687, 0.9121914926798697, 0.9744203268616474,
+                 0.8975523546892954, 0.9952038863374334, 0.9629126849294672,
+                 0.9846534178290406, 0.9000300029952001],
+    "type_iou": [1.0] * 8,
+    "inst_recall": [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.8333333333333334],
+}
+
+
+def _ref_means(runs):
+    return {m: [float(sum(r[m]) / len(r[m])) for r in runs]
+            for m in ("inst_iou", "type_iou", "inst_recall")}
+
+
+# The port draws its LOBPCG start blocks and subsamples from torch, so it is
+# held to the mean over JAX's three keys, within JAX's own spread across
+# them (max - min of the per-key batch means), and at least 0.03
+_KEY_MEANS = _ref_means(REF_PREDICT.values())
+REF_PREDICT_MEAN = {m: sum(v) / len(v) for m, v in _KEY_MEANS.items()}
+PREDICT_TOL = {m: max(0.03, max(v) - min(v)) for m, v in _KEY_MEANS.items()}
 # K1 may swap neighbours only inside a near-tie, at the distance of the one
 # it replaced, and in at most this share of the rows
 MAX_SWAPPED = 0.01
@@ -162,6 +226,121 @@ def _tol_trace(step, x, iterations=50, tol=1e-6):
             "last_delta": deltas[-1]}
 
 
+def _nonfused_route(geom, a, k, metric):
+    """The index route of the same reductions: K1's graph, then the plain
+    gather and reductions over K (`ops/graph.py edge_conv_factored`)."""
+    from sednet_tpu_torch.ops.flash_topk import flash_topk
+    from sednet_tpu_torch.ops.graph import gather_neighbors
+
+    g = gather_neighbors(a, flash_topk(geom, geom, k, metric=metric))
+    return g.amax(2), g.sum(2), (g * g).sum(2)
+
+
+def check_fused(name, geom, a, k, metric):
+    """K4 against fused_edge_reductions_plain by `compare_with_plain`:
+    every row outside a near-tie at the k-th distance agrees (same count,
+    same maxima, sums within the reassociation bound 1e-5 * k * max|a|),
+    and at most MAX_SWAPPED of all rows disagree."""
+    import torch
+    from sednet_tpu_torch.ops import fused_edgeconv as fe
+
+    out = fe.fused_edge_reductions(geom, a, k, metric=metric)
+    torch.cuda.synchronize()
+    cmp = fe.compare_with_plain(geom, a, k, out, metric=metric)
+    if cmp["bad_rows"] or cmp["swapped_rows"] > MAX_SWAPPED * cmp["rows"]:
+        raise AssertionError(f"K4 {name}: {cmp}")
+    b, n, d = geom.shape
+    c = a.shape[-1]
+    flops = b * n * n * (2 * 6 + 7 if metric == "points_normals" else 2 * d + 3)
+    flops += 4 * float(out[3].sum()) * c  # max, sum, square, sum per hit
+    bms, by = bound_ms(flops, 4 * (geom.numel() + a.numel() + 3 * b * n * c
+                                   + b * n))
+    return {"case": name, "shape": [b, n, d, c], "k": k, "metric": metric,
+            **cmp, "mean_count": float(out[3].mean()),
+            "ms": time_ms(lambda: fe.fused_edge_reductions(
+                geom, a, k, metric=metric), reps=5),
+            "plain_ms": time_ms(lambda: fe.fused_edge_reductions_plain(
+                geom, a, k, metric=metric), reps=3, warmup=1),
+            "library_ms": None,
+            "nonfused_route_ms": time_ms(lambda: _nonfused_route(
+                geom, a, k, metric), reps=5),
+            "bound_ms": bms, "bound_by": by}
+
+
+def _fused_layer_inputs(model, x):
+    """(name, geom, sign(scale) * a, metric) of the encoder's three edge
+    convolutions on the real layer inputs, as `fused_edge_conv` feeds K4."""
+    import torch
+    import torch.nn.functional as F
+
+    enc = model.encoder
+    x1, x2 = _knn_inputs(model, x)
+    out = []
+    for name, conv, feats, metric in (
+            ("layer 1 (points_normals)", enc.conv1, x, "points_normals"),
+            ("layer 2", enc.conv2, x1, "sqdist"),
+            ("layer 3", enc.conv3, x2, "sqdist")):
+        w = conv.conv.weight
+        sign = torch.where(conv.gn.weight >= 0, 1.0, -1.0)
+        with torch.no_grad():
+            a = (F.linear(feats, w[:, :feats.shape[-1]]) * sign).contiguous()
+        out.append((name, feats.contiguous(), a, metric))
+    return out
+
+
+def _check_wide(emb_e, bw):
+    """K2b and K3 on the 140-d enriched embeddings (run zero-padded to
+    160). K3 on real rows: values within 1e-5 of the plain version's, and
+    each returned index scores within 1e-5 of the plain best."""
+    import torch
+    import torch.nn.functional as F
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+
+    b, n, e = emb_e.shape
+    inv_b2 = 1.0 / (bw * bw)
+    got = ck.mean_shift_step_batched(emb_e, emb_e, bw)
+    want = ck.mean_shift_step_plain(emb_e, emb_e, inv_b2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"K2b E={e}: max abs error {err} > 1e-5")
+    bms, by = bound_ms(b * n * n * (4 * e + 4), 4 * 3 * b * n * e)
+    k2b = {"case": f"enriched E={e}", "shape": [b, n, e],
+           "max_abs_err": err, "tol": 1e-5,
+           "ms": time_ms(lambda: ck.mean_shift_step_batched(emb_e, emb_e, bw)),
+           "plain_ms": time_ms(lambda: ck.mean_shift_step_plain(
+               emb_e, emb_e, inv_b2), reps=3),
+           # the yardstick of the E=128 case: attention with q scaled by
+           # 1/b^2 is the same normalised kernel-weighted mean
+           "library_ms": time_ms(lambda: F.normalize(
+               F.scaled_dot_product_attention(
+                   (emb_e * inv_b2[:, None, None])[:, None], emb_e[:, None],
+                   emb_e[:, None], scale=1.0)[:, 0], dim=-1, eps=1e-12)),
+           "bound_ms": bms, "bound_by": by}
+
+    rows, cols = emb_e[0], got[0].contiguous()
+    zeros = torch.zeros(n, device=rows.device)
+    inf = float("inf")
+    bk, ik = ck.colmax(rows, cols, zeros, inf, 1.0)
+    bp, ip = ck.colmax_plain(rows, cols, zeros, inf, 1.0)
+    torch.cuda.synchronize()
+    err = float((bk - bp).abs().max())
+    at = (rows * cols[ik.long()]).sum(-1)
+    gap = float((bp - at).max())
+    if err > 1e-5 or gap > 1e-5:
+        raise AssertionError(f"K3 E={e}: value error {err}, index gap {gap}")
+    bms, by = bound_ms(n * n * (2 * e + 4), 4 * (2 * n * e + 3 * n))
+    k3 = {"case": f"membership, enriched E={e}", "shape": [n, n, e],
+          "max_abs_err": err, "tol": 1e-5, "index_score_gap": gap,
+          "indices_differ": int((ik != ip).sum()),
+          "ms": time_ms(lambda: ck.colmax(rows, cols, zeros, inf, 1.0)),
+          "plain_ms": time_ms(lambda: ck.colmax_plain(rows, cols, zeros, inf,
+                                                      1.0)),
+          "library_ms": time_ms(lambda: torch.max(rows @ cols.T, dim=1)),
+          "bound_ms": bms, "bound_by": by}
+    return k2b, k3
+
+
 def phase_kernels(model, x, emb):
     import numpy as np
     import torch
@@ -267,22 +446,45 @@ def phase_kernels(model, x, emb):
     return out
 
 
-def reset_counts():
+def phase_kernels_slice2(models, x):
+    """The kernel cases of the reference-default eval, after the headline
+    (so that the headline runs where it ran before them): K2b and K3 on
+    the 140-d enriched embeddings, K4 at the encoder's three layers."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
+    from sednet_tpu_torch.predict import HEADLINE
+
+    emb_e = enriched_embeddings(models, x, torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(0)
+    bw_e = torch.stack([torch.clamp_min(compute_bandwidth(
+        emb_e[i], HEADLINE.ms_num_samples, np.float32(HEADLINE.ms_quantile),
+        generator=gen), 0.003) for i in range(BATCH)])
+    k2b_e, k3_e = _check_wide(emb_e, bw_e)
+    out = {"K2b": [k2b_e], "K3": [k3_e],
+           "K4": [check_fused(name, g, a, K, metric) for name, g, a, metric
+                  in _fused_layer_inputs(models["inst"], x)]}
+    emit({"phase": "kernels_slice2", "ok": True, "results": out})
+    return out
+
+
+def _wrappers():
     from sednet_tpu_torch.ops import cuda_kernels as ck
     from sednet_tpu_torch.ops.flash_topk import flash_topk
+    from sednet_tpu_torch.ops.fused_edgeconv import fused_edge_reductions
 
-    for fn in (flash_topk, ck.mean_shift_step, ck.mean_shift_step_batched,
-               ck.colmax):
+    return {"K1": flash_topk, "K2": ck.mean_shift_step,
+            "K2b": ck.mean_shift_step_batched, "K3": ck.colmax,
+            "K4": fused_edge_reductions}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    from sednet_tpu_torch.ops import cuda_kernels as ck
-    from sednet_tpu_torch.ops.flash_topk import flash_topk
-
-    return {"K1": flash_topk.launches, "K2": ck.mean_shift_step.launches,
-            "K2b": ck.mean_shift_step_batched.launches,
-            "K3": ck.colmax.launches}
+    return {key: fn.launches for key, fn in _wrappers().items()}
 
 
 def phase_headline(model, x, shapes):
@@ -383,6 +585,238 @@ def _ari(a, b):
     return 1.0 if top == 0 else (pairs(table) - expected) / top
 
 
+PREDICT_KW = dict(num_points=N_POINTS, knn=K, embed=128, hpnet_embed=True,
+                  ms_num_samples=5000)   # bench.py:327
+
+
+def enriched_embeddings(models, x, gen):
+    """The clustering embedding of `predict_shapes`: the raw inst
+    embedding through HPNet enrichment per shape, L2-normalised (B, N,
+    140)."""
+    import torch
+    from sednet_tpu_torch.cluster.spectral import hpnet_process
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.predict import make_forward, spectral_embed
+
+    cfg = Config(**PREDICT_KW)
+    _, emb, _ = make_forward(models["inst"])(x)
+    out = []
+    for i in range(x.shape[0]):
+        v, ent = spectral_embed(x[i, :, :3], x[i, :, 3:6], cfg,
+                                generator=gen)
+        e = hpnet_process(emb[i], x[i, :, :3], x[i, :, 3:6],
+                          normal_smooth_w=cfg.normal_smooth_w,
+                          cached_eigvecs=v, cached_eig_entropy=ent)
+        out.append(e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12))
+    return torch.stack(out).contiguous()
+
+
+def _forward_peak_gib(fwd, x):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd(x)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _predict_stages(models, batch, cfg, inputs):
+    """Seconds of each stage of one predict_shapes call: the same public
+    calls in the same order, each stage ended by a synchronize (host
+    clock)."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.cluster.mean_shift import cluster_batch
+    from sednet_tpu_torch.cluster.spectral import (compute_entropy,
+                                                   hpnet_process,
+                                                   normal_affinity_topk,
+                                                   spectral_eigvecs)
+    from sednet_tpu_torch.metrics import siou_matched_segments_usecd_batch
+    from sednet_tpu_torch.predict import (cluster_settings,
+                                          make_first_layer_idx, make_forward,
+                                          make_tta_type_log_prob)
+
+    x0s, sels = inputs
+    x = torch.from_numpy(np.concatenate([batch["points"], batch["normals"]],
+                                        -1)).to(DEVICE)
+    t = {}
+    clock = [time.time()]
+
+    def lap(stage):
+        torch.cuda.synchronize()
+        now = time.time()
+        t[stage] = t.get(stage, 0.0) + now - clock[0]
+        clock[0] = now
+
+    idx1 = None if cfg.fused_encoder else make_first_layer_idx(cfg)(x)
+    type_lp = make_tta_type_log_prob(models["type"], cfg, False, False)(x,
+                                                                        idx1)
+    lap("type_forward_s")
+    _, emb, _ = make_forward(models["inst"], cfg.fused_encoder)(x, idx1)
+    lap("inst_forward_s")
+    embs = []
+    for i in range(x.shape[0]):
+        xyz, nrm = x[i, :, :3], x[i, :, 3:6]
+        aff = normal_affinity_topk(xyz, nrm, sigma=cfg.spectral_sigma,
+                                   k=cfg.spectral_knn)
+        lap("affinity_s")
+        v = spectral_eigvecs(aff, x0s[i], k=cfg.spectral_eigvecs)
+        del aff
+        lap("lobpcg_s")
+        e = hpnet_process(emb[i], xyz, nrm, normal_smooth_w=cfg.normal_smooth_w,
+                          cached_eigvecs=v, cached_eig_entropy=compute_entropy(v))
+        embs.append(e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12))
+        lap("entropy_concat_s")
+    labels, _, _ = cluster_batch(torch.stack(embs).contiguous(), sels=sels,
+                                 **cluster_settings(cfg, cfg.num_points))
+    lap("cluster_batch_s")
+    siou_matched_segments_usecd_batch(
+        list(batch["labels"].astype(np.int64)), list(labels.cpu().numpy()),
+        list(type_lp.argmax(-1).cpu().numpy()),
+        list(batch["prim"].astype(np.int64)), list(batch["points"]),
+        device=DEVICE)
+    lap("metrics_s")
+    t["total_s"] = sum(t.values())
+    return t
+
+
+def _device_profile(run):
+    """One run under torch.profiler: the wall time, the summed device time
+    of its kernels (the events on the device, not the host ops that
+    launched them, which carry the same time again), their share of the
+    wall time, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+
+    rows = [(ev.key, float(ev.self_device_time_total), ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    rows = [r for r in rows if r[1] > 0]
+    busy = sum(r[1] for r in rows) / 1e6
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_s": wall, "device_kernel_s": busy if rows else None,
+            "device_busy_share": busy / wall if rows else None,
+            "top": [[k[:60], us / 1e3, n] for k, us, n in rows[:10]]}
+
+
+def phase_predict(name, models, batch, inputs, *, fused=False,
+                  fold5drop=False, reps=3):
+    """predict_shapes on the headline batch under bench.py's config, with
+    the injected random inputs `inputs` = (x0s, sels), so that runs
+    compare label for label. Launches from the first run; shapes/s the
+    median of `reps` more, each ended by a synchronize."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.predict import (make_forward,
+                                          make_tta_type_log_prob,
+                                          predict_shapes)
+
+    cfg = Config(**PREDICT_KW, fused_encoder=fused)
+    tta = make_tta_type_log_prob(models["type"], cfg, False, fold5drop)
+    fwd = make_forward(models["inst"], fused=fused)
+    x0s, sels = inputs
+
+    def run():
+        return predict_shapes(models["type"], models["inst"], batch, cfg,
+                              tta_fn=tta, forward_fn=fwd, x0s=x0s, sels=sels)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    need = ("K1", "K2b", "K3") + (("K4",) if fused else ())
+    for key in need:
+        if counts[key] <= 0:
+            raise AssertionError(f"{name} launched {key} no time")
+    labels = np.stack([r["cluster_ids"] for r in res])
+    if labels.shape != (BATCH, N_POINTS) or labels.min() < 0:
+        raise AssertionError(f"{name}: bad labels {labels.shape}")
+    got = {m: float(np.mean([r[m] for r in res]))
+           for m in ("inst_iou", "type_iou", "inst_recall")}
+    if not all(np.isfinite(v) for v in got.values()):
+        raise AssertionError(f"{name}: metrics not finite {got}")
+    ref, tol = dict(REF_PREDICT_MEAN), PREDICT_TOL
+    if fold5drop:  # the votes change types only (JAX: same inst numbers)
+        ref["type_iou"] = float(np.mean(REF_PREDICT_FOLD5["type_iou"]))
+    ok = all(abs(got[m] - ref[m]) <= tol[m] for m in got)
+    ts = []
+    for _ in range(reps):
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        ts.append(time.time() - t0)
+    med = float(np.median(ts))
+    if not fold5drop:
+        stages = _predict_stages(models, batch, cfg, inputs)
+        profile = _device_profile(run)
+    rec = {"phase": name, "ok": ok, "shapes_per_s": BATCH / med,
+           "batch_s_median": med, "batch_s_min": min(ts),
+           "batch_s_max": max(ts), "timing": f"median of {reps} synced batches",
+           **got, "ref": ref, "tol": tol,
+           "per_shape": [[r["inst_iou"], r["type_iou"], r["inst_recall"],
+                          r["num_clusters"]] for r in res],
+           "guard_capped": sum(r["guard_capped"] for r in res),
+           "launches": counts, "peak_mem_gib": peak_gib,
+           **({} if fold5drop else {"stages": stages, "profile": profile}),
+           "forward_peak_gib": _forward_peak_gib(fwd, torch.from_numpy(
+               np.concatenate([batch["points"], batch["normals"]], -1)).to(
+                   DEVICE))}
+    return rec, labels, fwd
+
+
+def phase_predict_all(models, shapes):
+    """The predict, predict_fused and predict_fold5drop phases."""
+    import numpy as np
+    import torch
+
+    batch = {k: np.stack([s[k] for s in shapes])
+             for k in ("points", "normals", "labels", "prim")}
+    gen = torch.Generator().manual_seed(3)
+    x0s = [torch.randn((N_POINTS, 12), generator=gen) for _ in range(BATCH)]
+    sels = [torch.randperm(N_POINTS, generator=gen)[:5000]
+            for _ in range(BATCH)]
+    out = {}
+    for name, fused, fold5 in (("predict", False, False),
+                               ("predict_fused", True, False),
+                               ("predict_fold5drop", False, True)):
+        rec, labels, fwd = phase_predict(name, models, batch, (x0s, sels),
+                                         fused=fused, fold5drop=fold5,
+                                         reps=1 if fold5 else 3)
+        out[name] = (rec, labels, fwd)
+        if fused:
+            x = torch.from_numpy(np.concatenate(
+                [batch["points"], batch["normals"]], -1)).to(DEVICE)
+            e_def = out["predict"][2](x)[1]
+            e_fus = fwd(x)[1]
+            cos = (torch.nn.functional.normalize(e_def, dim=-1)
+                   * torch.nn.functional.normalize(e_fus, dim=-1)).sum(-1)
+            aris = [_ari(labels[i], out["predict"][1][i])
+                    for i in range(BATCH)]
+            rec.update({
+                "max_angle_vs_predict_rad": float(torch.arccos(
+                    cos.clamp(-1.0, 1.0)).max()),
+                "ari_vs_predict": aris,
+                "forward_peak_gib_predict": out["predict"][0][
+                    "forward_peak_gib"]})
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{name}: metrics out of tolerance {rec}")
+    return {name: v[0] for name, v in out.items()}
+
+
 KERNELS = {
     "K1": ("flash_topk", "sednet_tpu_torch/csrc/flash_topk.cu",
            "sednet_tpu/ops/flash_topk.py:259"),
@@ -392,6 +826,8 @@ KERNELS = {
             "sednet_tpu/ops/pallas_kernels.py:106"),
     "K3": ("colmax", "sednet_tpu_torch/csrc/colmax.cu",
            "sednet_tpu/ops/pallas_kernels.py:184"),
+    "K4": ("fused_edge_reductions", "sednet_tpu_torch/csrc/fused_edgeconv.cu",
+           "sednet_tpu/ops/fused_edgeconv.py:204"),
 }
 
 
@@ -412,19 +848,28 @@ def main():
     from sednet_tpu_torch.predict import forward, headline_shapes, load_models
 
     shapes, x_np = headline_shapes(BATCH, N_POINTS)
-    model = load_models(os.path.join(ROOT, "checkpoints", "bench_10k.npz"),
-                        which=("inst",), device=DEVICE)["inst"]
+    models = load_models(os.path.join(ROOT, "checkpoints", "bench_10k.npz"),
+                         device=DEVICE)
+    model = models["inst"]
     x = torch.from_numpy(x_np).to(DEVICE)
     emb = forward(model, x)[0].contiguous()
 
     timings = phase_kernels(model, x, emb)
     counts, _ = phase_headline(model, x, shapes)
-    counts["K2b"] = phase_cluster_batch(emb)["K2b"]
+    phase_cluster_batch(emb)
+    for key, cases in phase_kernels_slice2(models, x).items():
+        timings.setdefault(key, []).extend(cases)
+    pred = phase_predict_all(models, shapes)
+    # each kernel's launches from the path of this smoke that runs it:
+    # K2b from the reference-default eval, K4 from its fused form
+    counts["K2b"] = pred["predict"]["launches"]["K2b"]
+    counts["K4"] = pred["predict_fused"]["launches"]["K4"]
 
     summary = []
     for key, (name, source, replaces) in KERNELS.items():
         cases = timings[key]
-        main_case = cases[1] if key == "K1" else cases[0]  # K1: layer-2 knn
+        # K1 and K4: the layer-2 case; K2b: the enriched E=140 case
+        main_case = cases[1] if key in ("K1", "K2b", "K4") else cases[0]
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[key],

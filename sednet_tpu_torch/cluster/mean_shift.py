@@ -185,13 +185,19 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
     per-shape NMS, and a guarded retry only for shapes with more than
     max_clusters clusters.
 
+    sels: optional subsample indices per shape, a tensor or a list with
+    one per attempt (the first for the batch pass, the rest for the
+    retries, which start at quantile * retry_factor in float32 as the
+    JAX package's guard does).
+
     Returns (labels (B, N) int64, num_clusters (B,) int64, flags) with
     flags {"capped", "bw_capped"} as (B,) bool arrays."""
     b = x.shape[0]
-    sels = sels if sels is not None else [None] * b
+    sels = [s if isinstance(s, (list, tuple)) else [s]
+            for s in (sels if sels is not None else [None] * b)]
     bw = torch.stack([torch.clamp_min(compute_bandwidth(
         x[i], num_samples, np.float32(quantile), generator=generator,
-        sel=sels[i]), _MIN_BANDWIDTH) for i in range(b)])
+        sel=sels[i][0]), _MIN_BANDWIDTH) for i in range(b)])
     shifted = _iterate_until(
         lambda cur: mean_shift_step_batched(cur, x, bw), x, iterations, tol)
     bw_host = bw.tolist()
@@ -203,9 +209,10 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
         if num > max_clusters:
             res = guard_mean_shift(
                 x[i], num_samples=num_samples,
-                quantile=quantile * retry_factor, iterations=iterations,
-                max_clusters=max_clusters, retry_factor=retry_factor,
-                tol=tol, generator=generator)
+                quantile=np.float32(quantile) * np.float32(retry_factor),
+                iterations=iterations, max_clusters=max_clusters,
+                retry_factor=retry_factor, tol=tol, generator=generator,
+                sel=sels[i][1:] or None)
             lab, num = res.labels, res.num_clusters
             capped[i], bw_capped[i] = res.capped, res.bw_capped
         labels.append(lab)

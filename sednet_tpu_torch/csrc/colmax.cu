@@ -19,19 +19,21 @@
 // which it visits in ascending order; the 16 threads of a row then merge
 // with warp shuffles. Both merges take a new value when
 // `val > best || (val == best && c < idx)`, the lowest-index rule of the
-// TPU kernel's first argmax.
+// TPU kernel's first argmax. The kernel is a template on the row width E, a
+// multiple of 32 up to 256 (the wrapper zero-pads narrower or odd widths).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int E = 128;
 constexpr int RB = 64;
 constexpr int CB = 64;
 constexpr int THREADS = 256;
-constexpr int QS = E + 1;
 
-constexpr int SMEM_BYTES = (RB * QS + CB * QS + CB) * 4;
+template <int E>
+constexpr int smem_bytes() {
+  return (RB * (E + 1) + CB * (E + 1) + CB) * 4;
+}
 
 __device__ __forceinline__ void take_better(float v, int c, float& best,
                                             int& idx) {
@@ -41,11 +43,13 @@ __device__ __forceinline__ void take_better(float v, int c, float& best,
   }
 }
 
+template <int E>
 __global__ void __launch_bounds__(THREADS)
 colmax_kernel(const float* __restrict__ rows, const float* __restrict__ cols,
               const float* __restrict__ bias, int nr, int nc, float thresh,
               float gain, float* __restrict__ best_out,
               int* __restrict__ idx_out) {
+  constexpr int QS = E + 1;
   extern __shared__ float smem[];
   float* rs = smem;              // RB x QS
   float* cs = rs + RB * QS;      // CB x QS
@@ -127,19 +131,43 @@ colmax_kernel(const float* __restrict__ rows, const float* __restrict__ cols,
   }
 }
 
-}  // namespace
-
-// rows: (R, 128), cols: (C, 128), bias: (C,) float32 contiguous;
-// best: (R,) float32, idx: (R,) int32.
-extern "C" int sednet_colmax(const void* rows, const void* cols,
-                             const void* bias, int nr, int nc, float thresh,
-                             float gain, void* best, void* idx, void* stream) {
+template <int E>
+int launch(const float* rows, const float* cols, const float* bias, int nr,
+           int nc, float thresh, float gain, float* best, int* idx,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      colmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      colmax_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<E>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nr + RB - 1) / RB);
-  colmax_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)cols, (const float*)bias, nr, nc,
-      thresh, gain, (float*)best, (int*)idx);
+  colmax_kernel<E><<<grid, THREADS, smem_bytes<E>(), stream>>>(
+      rows, cols, bias, nr, nc, thresh, gain, best, idx);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows: (R, E), cols: (C, E), bias: (C,) float32 contiguous, E a multiple
+// of 32 up to 256; best: (R,) float32, idx: (R,) int32.
+extern "C" int sednet_colmax(const void* rows, const void* cols,
+                             const void* bias, int nr, int nc, int e,
+                             float thresh, float gain, void* best, void* idx,
+                             void* stream) {
+  const float* r = (const float*)rows;
+  const float* c = (const float*)cols;
+  const float* b = (const float*)bias;
+  float* bo = (float*)best;
+  int* io = (int*)idx;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (e) {
+    case 32: return launch<32>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 64: return launch<64>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 96: return launch<96>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 128: return launch<128>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 160: return launch<160>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 192: return launch<192>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 224: return launch<224>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    case 256: return launch<256>(r, c, b, nr, nc, thresh, gain, bo, io, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -18,7 +18,10 @@
 // shape and keeps them in shared memory; it walks the 64-column tiles of x,
 // forms the 64x64 similarity tile in registers (each of 256 threads holds a
 // 4x4 piece), turns it into kernel weights, stages them in shared memory and
-// accumulates num (64 x 128, 32 values per thread) and den in registers.
+// accumulates num (64 x E, 4 * E / 16 values per thread) and den in
+// registers. The kernel is a template on the row width E, a multiple of 32
+// up to 256 (the wrapper zero-pads: the HPNet-enriched embedding is 140-d
+// and runs at E = 160), so each width keeps its loops unrolled.
 // The N x N matrix never reaches device memory. Shared-memory rows are
 // padded to an odd stride so that the 16 column-threads of a half warp hit
 // 16 different banks. Everything stays float32 (no TF32), as the reference's
@@ -27,19 +30,23 @@
 
 namespace {
 
-constexpr int E = 128;        // embedding width held (narrower inputs are zero-padded)
 constexpr int RB = 64;        // query rows per block
 constexpr int CB = 64;        // columns per tile
 constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int QS = E + 1;     // padded row stride of the q and x tiles
 constexpr int KS = CB + 1;    // padded row stride of the weight tile
 
-constexpr int SMEM_BYTES = (RB * QS + CB * QS + RB * KS) * 4;
+template <int E>
+constexpr int smem_bytes() {
+  return (RB * (E + 1) + CB * (E + 1) + RB * KS) * 4;
+}
 
+template <int E>
 __global__ void __launch_bounds__(THREADS)
 ms_step_kernel(const float* __restrict__ q, const float* __restrict__ x,
                const float* __restrict__ inv_b2, int n,
                float* __restrict__ out) {
+  constexpr int QS = E + 1;     // padded row stride of the q and x tiles
+  constexpr int EJ = E / 16;    // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;               // RB x QS
   float* xs = qs + RB * QS;       // CB x QS
@@ -60,13 +67,13 @@ ms_step_kernel(const float* __restrict__ q, const float* __restrict__ x,
   }
 
   // thread (ty, tx) owns rows ty + 16*i and columns tx + 16*j
-  float num[4][8];
+  float num[4][EJ];
   float den[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     den[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) num[i][j] = 0.f;
+    for (int j = 0; j < EJ; ++j) num[i][j] = 0.f;
   }
 
   for (int c0 = 0; c0 < n; c0 += CB) {
@@ -109,15 +116,15 @@ ms_step_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 #pragma unroll 4
     for (int c = 0; c < CB; ++c) {
-      float kv[4], xv[8];
+      float kv[4], xv[EJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) kv[i] = ks[(ty + 16 * i) * KS + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) xv[j] = xs[c * QS + tx + 16 * j];
+      for (int j = 0; j < EJ; ++j) xv[j] = xs[c * QS + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) num[i][j] = fmaf(kv[i], xv[j], num[i][j]);
+        for (int j = 0; j < EJ; ++j) num[i][j] = fmaf(kv[i], xv[j], num[i][j]);
     }
   }
 
@@ -131,7 +138,7 @@ ms_step_kernel(const float* __restrict__ q, const float* __restrict__ x,
     d = fmaxf(d, 1e-30f);
     float ss = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < EJ; ++j) {
       num[i][j] = num[i][j] / d;
       ss = fmaf(num[i][j], num[i][j], ss);
     }
@@ -142,23 +149,46 @@ ms_step_kernel(const float* __restrict__ q, const float* __restrict__ x,
     const int gr = r0 + ty + 16 * i;
     if (gr < n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < EJ; ++j)
         out[base + (size_t)gr * E + tx + 16 * j] = num[i][j] / nrm;
     }
   }
 }
 
-}  // namespace
-
-// q, x, out: (B, N, 128) float32 contiguous; inv_b2: (B,) float32.
-extern "C" int sednet_mean_shift_step(const void* q, const void* x,
-                                      const void* inv_b2, int batch, int n,
-                                      void* out, void* stream) {
+template <int E>
+int launch(const float* q, const float* x, const float* inv_b2, int batch,
+           int n, float* out, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      ms_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      ms_step_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<E>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + RB - 1) / RB, batch);
-  ms_step_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)x, (const float*)inv_b2, n, (float*)out);
+  ms_step_kernel<E><<<grid, THREADS, smem_bytes<E>(), stream>>>(
+      q, x, inv_b2, n, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, x, out: (B, N, E) float32 contiguous, E a multiple of 32 up to 256;
+// inv_b2: (B,) float32.
+extern "C" int sednet_mean_shift_step(const void* q, const void* x,
+                                      const void* inv_b2, int batch, int n,
+                                      int e, void* out, void* stream) {
+  const float* qf = (const float*)q;
+  const float* xf = (const float*)x;
+  const float* bf = (const float*)inv_b2;
+  float* of = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (e) {
+    case 32: return launch<32>(qf, xf, bf, batch, n, of, st);
+    case 64: return launch<64>(qf, xf, bf, batch, n, of, st);
+    case 96: return launch<96>(qf, xf, bf, batch, n, of, st);
+    case 128: return launch<128>(qf, xf, bf, batch, n, of, st);
+    case 160: return launch<160>(qf, xf, bf, batch, n, of, st);
+    case 192: return launch<192>(qf, xf, bf, batch, n, of, st);
+    case 224: return launch<224>(qf, xf, bf, batch, n, of, st);
+    case 256: return launch<256>(qf, xf, bf, batch, n, of, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,5 +1,7 @@
-from sednet_tpu_torch.metrics.segmentation import (batch_iou,
-                                                   siou_matched_segments,
-                                                   to_one_hot)
+from sednet_tpu_torch.metrics.segmentation import (
+    batch_iou, siou_matched_segments, siou_matched_segments_usecd,
+    siou_matched_segments_usecd_batch, to_one_hot)
 
-__all__ = ["batch_iou", "siou_matched_segments", "to_one_hot"]
+__all__ = ["batch_iou", "siou_matched_segments",
+           "siou_matched_segments_usecd", "siou_matched_segments_usecd_batch",
+           "to_one_hot"]

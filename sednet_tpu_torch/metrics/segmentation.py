@@ -1,14 +1,20 @@
-"""Hungarian-matched segmentation and type IoU, in numpy on the host.
+"""Hungarian-matched segmentation and type IoU.
 
-Counterpart of `sednet_tpu/metrics/segmentation.py:24-226` (reference:
-src/segment_utils.py:140-188) without the chamfer variants. The relaxed-IoU
-cost is computed in float32 over 50 one-hot columns, as the JAX package
-does, and the assignment is scipy's.
+Counterpart of `sednet_tpu/metrics/segmentation.py:24-297` (reference:
+src/segment_utils.py:140-242), with the chamfer-recall ("usecd") variant of
+the reference-default eval. The relaxed-IoU cost is computed in float32
+over 50 one-hot columns, as the JAX package does (its counts are integers,
+so the cost is the same bits on any device); the assignment is scipy's on
+the host; the chamfer distances of the matched pairs run in PyTorch on the
+device the caller names.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.optimize import linear_sum_assignment
+
+from sednet_tpu_torch.ops.chamfer import nn_distance
 
 N_SEG = 50
 
@@ -18,23 +24,6 @@ def to_one_hot(target: np.ndarray, maxx: int = 50) -> np.ndarray:
     out = np.zeros((target.shape[0], maxx), np.float32)
     out[np.arange(target.shape[0]), target.astype(np.int64)] = 1.0
     return out
-
-
-def relaxed_iou(pred: np.ndarray, gt: np.ndarray) -> np.ndarray:
-    """Soft IoU of one-hot segmentations (N, K) and (N, K') -> (K, K')."""
-    dots = pred.T @ gt
-    norms_p = pred.sum(0)[:, None]
-    norms_g = gt.sum(0)[None, :]
-    return dots / (norms_p + norms_g - dots + np.float32(1e-7))
-
-
-def relaxed_cost_from_labels(pred: np.ndarray, target: np.ndarray):
-    """(N,) predicted and true ids -> (50, 50) float32 1 - relaxed IoU.
-    Ids of 50 and above contribute no membership."""
-    k = np.arange(N_SEG)
-    ph = (pred[:, None] == k).astype(np.float32)
-    gh = (target[:, None] == k).astype(np.float32)
-    return np.float32(1.0) - relaxed_iou(ph, gh)
 
 
 def _remap_eval(t: np.ndarray) -> np.ndarray:
@@ -50,6 +39,12 @@ def primitive_type_per_segment(prim_one_hot: np.ndarray,
     return (prim_one_hot.T @ weights).argmax(0)
 
 
+def _cost_one(pred_labels: np.ndarray, target: np.ndarray) -> np.ndarray:
+    return _relaxed_cost_from_labels(
+        torch.from_numpy(pred_labels.astype(np.int64))[None],
+        torch.from_numpy(target.astype(np.int64))[None])[0].numpy()
+
+
 def siou_matched_segments(target, pred_labels, primitives_pred, primitives,
                           weights, min_gt_points: int = 100):
     """Matched segment IoU and type accuracy of one shape.
@@ -59,32 +54,13 @@ def siou_matched_segments(target, pred_labels, primitives_pred, primitives,
     Returns (seg_iou, type_iou, (rows, cols), prim_pairs, seg_recall)."""
     target = np.asarray(target)
     pred_labels = np.asarray(pred_labels)
-    primitives = _remap_eval(np.asarray(primitives))
     prim_per_seg = primitive_type_per_segment(
         to_one_hot(_remap_eval(np.asarray(primitives_pred)), 10),
         np.asarray(weights, np.float32))
-    rows, cols = linear_sum_assignment(
-        relaxed_cost_from_labels(pred_labels, target))
-    iou_b, prim_ok, prim_pairs, recall_b = [], [], [], []
-    for r, c in zip(rows, cols):
-        pred_i = pred_labels == r
-        gt_i = target == c
-        if gt_i.sum() < max(min_gt_points, 1) or pred_i.sum() == 0:
-            continue
-        tp = np.logical_and(pred_i, gt_i).sum()
-        iou_b.append(tp / (np.logical_or(pred_i, gt_i).sum() + 1e-8))
-        fn = np.logical_and(~pred_i, gt_i).sum()
-        recall_b.append(tp / (tp + fn + 1e-8))
-        gt_type = primitives[gt_i][0]
-        pred_type = prim_per_seg[r]
-        prim_ok.append(gt_type == pred_type)
-        prim_pairs.append([gt_type, pred_type])
-
-    def mean(v):
-        return float(np.mean(v)) if v else float("nan")
-
-    return (mean(iou_b), mean(prim_ok), (rows, cols), prim_pairs,
-            mean(recall_b))
+    return _collect_matched(target, pred_labels, prim_per_seg,
+                            _remap_eval(np.asarray(primitives)),
+                            _cost_one(pred_labels, target),
+                            min_gt_points=min_gt_points)[:5]
 
 
 def batch_iou(shapes, labels, types):
@@ -103,3 +79,162 @@ def batch_iou(shapes, labels, types):
         per.append((s_iou, p_iou))
     return (float(np.mean([p[0] for p in per])),
             float(np.mean([p[1] for p in per])), per)
+
+
+def _relaxed_cost_from_labels(preds, targets):
+    """(B, N) integer predicted and true ids (tensors) -> (B, 50, 50)
+    float32 1 - relaxed IoU, the one-hots built on the ids' device. Ids of
+    50 and above contribute no membership."""
+    k = torch.arange(N_SEG, device=preds.device)
+    ph = (preds[..., None] == k).float()
+    gh = (targets.to(preds.device)[..., None] == k).float()
+    dots = torch.einsum("bnk,bnl->bkl", ph, gh)
+    norms_p = ph.sum(1)[:, :, None]
+    norms_g = gh.sum(1)[:, None, :]
+    return 1.0 - dots / (norms_p + norms_g - dots + 1e-7)
+
+
+def hungarian_match(cost: np.ndarray):
+    """rows, cols minimising the total cost (the reference uses
+    lapsolver.solve_dense, src/segment_utils.py:173-176)."""
+    return linear_sum_assignment(cost)
+
+
+def _prim_type_per_segment_np(pred_labels: np.ndarray,
+                              prims_pred: np.ndarray, n_seg: int = 50,
+                              n_type: int = 10) -> np.ndarray:
+    """Majority type per predicted segment by counts[k, t] = |{i: label_i
+    == k and prim_i == t}|, argmax over t (first on ties, as the one-hot
+    product's argmax)."""
+    counts = np.bincount(
+        pred_labels.astype(np.int64) * n_type + prims_pred.astype(np.int64),
+        minlength=n_seg * n_type).reshape(n_seg, n_type)
+    return counts.argmax(1)
+
+
+def _collect_matched(target, pred_labels, prim_pred_per_seg, primitives,
+                     cost, points=None, min_gt_points: int = 100,
+                     use_chamfer: bool = False):
+    """Hungarian matching and the matched-pair loop on a precomputed cost.
+    With use_chamfer every matched pair counts (small segments too) and the
+    pairs' point sets are handed back for one batched chamfer. Returns
+    (seg_iou, type_iou, (rows, cols), prim_pairs, recall, cd_pairs)."""
+    rows, cols = hungarian_match(cost)
+    iou_b, prim_ok, prim_pairs, recall_b, cd_pairs = [], [], [], [], []
+    for r, c in zip(rows, cols):
+        pred_i = pred_labels == r
+        gt_i = target == c
+        if gt_i.sum() == 0 or pred_i.sum() == 0:
+            continue
+        if not use_chamfer and gt_i.sum() < min_gt_points:
+            continue
+        tp = np.logical_and(pred_i, gt_i).sum()
+        iou_b.append(tp / (np.logical_or(pred_i, gt_i).sum() + 1e-8))
+        if use_chamfer:
+            cd_pairs.append((points[pred_i], points[gt_i]))
+        else:
+            fn = np.logical_and(~pred_i, gt_i).sum()
+            recall_b.append(tp / (tp + fn + 1e-8))
+        gt_type = primitives[gt_i][0]
+        prim_ok.append(gt_type == prim_pred_per_seg[r])
+        prim_pairs.append([gt_type, prim_pred_per_seg[r]])
+
+    def mean(v):
+        return float(np.mean(v)) if v else float("nan")
+
+    return (mean(iou_b), mean(prim_ok), (rows, cols), prim_pairs,
+            mean(recall_b), cd_pairs)
+
+
+def _pow2(n: int, lo: int = 64) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _masked_chamfer_pairs(pairs, device="cpu") -> np.ndarray:
+    """Symmetric chamfer of each (a (Na, 3), b (Nb, 3)) numpy pair, padded
+    into buckets of power-of-two sizes: pads sit at 1e6 so they never win
+    a nearest neighbour, and each direction's mean is weighted by the mask
+    (so each pair's value is its own chamfer distance)."""
+    groups: dict = {}
+    for i, (x, y) in enumerate(pairs):
+        groups.setdefault((_pow2(x.shape[0]), _pow2(y.shape[0])),
+                          []).append(i)
+    out = np.zeros((len(pairs),), np.float32)
+    for (pa, pb), idxs in groups.items():
+        sp = _pow2(len(idxs), lo=8)
+        a = np.zeros((sp, pa, 3), np.float32)
+        ma = np.zeros((sp, pa), np.float32)
+        b = np.zeros((sp, pb, 3), np.float32)
+        mb = np.zeros((sp, pb), np.float32)
+        for j, i in enumerate(idxs):
+            x, y = pairs[i]
+            a[j, :x.shape[0]], ma[j, :x.shape[0]] = x, 1.0
+            b[j, :y.shape[0]], mb[j, :y.shape[0]] = y, 1.0
+        a, ma, b, mb = (torch.from_numpy(v).to(device) for v in (a, ma, b, mb))
+        d1, d2, _, _ = nn_distance(a + (1.0 - ma[..., None]) * 1e6,
+                                   b + (1.0 - mb[..., None]) * 1e6)
+        m1 = (d1 * ma).sum(1) / torch.clamp_min(ma.sum(1), 1e-8)
+        m2 = (d2 * mb).sum(1) / torch.clamp_min(mb.sum(1), 1e-8)
+        out[np.asarray(idxs)] = (0.5 * (m1 + m2)).cpu().numpy()[:len(idxs)]
+    return out
+
+
+def siou_matched_segments_usecd(target, pred_labels, primitives_pred,
+                                primitives, weights, points):
+    """Chamfer-recall variant of the matched metrics for one shape; keeps
+    small segments (reference: src/segment_utils.py:194-242). weights:
+    (N, K) predicted one-hot; points (N, 3). Returns (seg_iou, type_iou,
+    matching, prim_pairs, recall), recall = the share of true segments
+    whose matched prediction lies within chamfer 0.1 (halved)."""
+    target = np.asarray(target)
+    pred_labels = np.asarray(pred_labels)
+    prim_per_seg = primitive_type_per_segment(
+        to_one_hot(_remap_eval(np.asarray(primitives_pred)), 10),
+        np.asarray(weights, np.float32))
+    seg_iou, prim_iou, matching, pairs, _, cd_pairs = _collect_matched(
+        target, pred_labels, prim_per_seg,
+        _remap_eval(np.asarray(primitives)), _cost_one(pred_labels, target),
+        points=np.asarray(points), use_chamfer=True)
+    recall_pos = 0
+    if cd_pairs:
+        recall_pos = int((_masked_chamfer_pairs(cd_pairs) / 2.0 < 0.1).sum())
+    return (seg_iou, prim_iou, matching, pairs,
+            recall_pos / np.unique(target).shape[0])
+
+
+def siou_matched_segments_usecd_batch(targets, pred_labels, primitives_pred,
+                                      primitives, points, device="cpu"):
+    """siou_matched_segments_usecd for a batch of shapes, with one cost
+    computation and one padded chamfer over every matched pair of every
+    shape. targets / pred_labels / primitives_pred / primitives: sequences
+    of (N,) integer arrays; points: (N, 3) arrays. Returns one (seg_iou,
+    type_iou, matching, prim_pairs, recall) per shape."""
+    p_arr = np.stack([np.asarray(p).astype(np.int64) for p in pred_labels])
+    t_arr = np.stack([np.asarray(t).astype(np.int64) for t in targets])
+    cost_all = _relaxed_cost_from_labels(
+        torch.from_numpy(p_arr).to(device),
+        torch.from_numpy(t_arr).to(device)).cpu().numpy()
+    partial, all_pairs, spans = [], [], []
+    for i in range(len(targets)):
+        prim_per_seg = _prim_type_per_segment_np(
+            p_arr[i], _remap_eval(np.asarray(primitives_pred[i])))
+        seg_iou, prim_iou, matching, prim_pairs, _, cd_pairs = \
+            _collect_matched(np.asarray(targets[i]), np.asarray(pred_labels[i]),
+                             prim_per_seg, _remap_eval(np.asarray(primitives[i])),
+                             cost_all[i], points=np.asarray(points[i]),
+                             use_chamfer=True)
+        spans.append((len(all_pairs), len(cd_pairs)))
+        all_pairs.extend(cd_pairs)
+        partial.append((seg_iou, prim_iou, matching, prim_pairs))
+    cds = (_masked_chamfer_pairs(all_pairs, device) / 2.0 if all_pairs
+           else np.zeros((0,), np.float32))
+    out = []
+    for (s0, cnt), (seg_iou, prim_iou, matching, prim_pairs), t in zip(
+            spans, partial, targets):
+        recall = int((cds[s0:s0 + cnt] < 0.1).sum()) / np.unique(
+            np.asarray(t)).shape[0]
+        out.append((seg_iou, prim_iou, matching, prim_pairs, recall))
+    return out

@@ -72,9 +72,13 @@ class SEDNet(nn.Module):
                    late_fusion=cfg.late_fusion,
                    combine_label_prim=cfg.combine_label_prim)
 
-    def forward(self, points, idx1=None) -> SEDNetOutput:
-        """points: (B, N, 6) (mode 5) or (B, N, 3) (mode 0)."""
-        global_feat, feats = self.encoder(points, idx1)
+    def forward(self, points, idx1=None, encoder_out=None) -> SEDNetOutput:
+        """points: (B, N, 6) (mode 5) or (B, N, 3) (mode 0). encoder_out:
+        an encoder result (global (B, 1024), features (B, N, 256)) computed
+        elsewhere (`apply_fused`); the heads then run on it."""
+        if encoder_out is None:
+            encoder_out = self.encoder(points, idx1)
+        global_feat, feats = encoder_out
         b, n, _ = feats.shape
         x = torch.cat([global_feat[:, None, :].expand(b, n, -1), feats], -1)
         x = F.relu(self.gn1(self.conv1(x)))
@@ -99,3 +103,15 @@ class SEDNet(nn.Module):
             x = x + self.w_pos_enc * F.relu(self.prim_encoding(fuse_in))
         embedding = self.mlp_seg_prob2(x)
         return SEDNetOutput(embedding, type_log_prob, type_logits, edge_logits)
+
+
+def apply_fused(model: SEDNet, points) -> SEDNetOutput:
+    """Inference forward through the index-free fused encoder
+    (`ops.fused_edgeconv.encoder_apply_fused`, kernel K4) on the same
+    parameters, then the heads (`sednet_tpu/models/sednet.py:153-169`).
+    Matches model(points) to float tolerance, ties at the k-th neighbour
+    distance aside."""
+    from sednet_tpu_torch.ops.fused_edgeconv import encoder_apply_fused
+
+    return model(points, encoder_out=encoder_apply_fused(model.encoder,
+                                                         points))

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sednet_tpu_torch"
-SOURCES = ("colmax.cu", "errors.cu", "flash_topk.cu", "mean_shift.cu")
+SOURCES = ("colmax.cu", "errors.cu", "flash_topk.cu", "fused_edgeconv.cu",
+           "mean_shift.cu")
 # -fmad=false keeps every product and sum that the sources write apart
 # as written (the dot products use explicit fmaf), so the arithmetic
 # follows the plain PyTorch versions step for step.
@@ -32,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sednet_topk": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P),
-    "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _P, _P),
-    "sednet_colmax": (_P, _P, _P, _I, _I, _F, _F, _P, _P, _P),
+    "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "sednet_colmax": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
+    "sednet_fused_edge_reductions": (_P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                     _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -127,6 +130,22 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+WIDTH_STEP, WIDTH_MAX = 32, 256   # row widths the kernels are compiled for
+
+
+def pad_width(t):
+    """t (..., E) zero-padded on its last axis to the next multiple of 32
+    (contiguous), as the row-width templates of the kernels take it; zero
+    columns change neither a dot product nor a norm. Raises above 256."""
+    import torch.nn.functional as F
+
+    e = t.shape[-1]
+    if not 1 <= e <= WIDTH_MAX:
+        raise ValueError(f"row width {e} outside the kernels' [1, {WIDTH_MAX}]")
+    ep = -(-e // WIDTH_STEP) * WIDTH_STEP
+    return t if e == ep else F.pad(t, (0, ep - e)).contiguous()
 
 
 def require_cuda_f32(name: str, t) -> None:

@@ -9,25 +9,16 @@ Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
   * `colmax` -- `colmax_pallas` (`csrc/colmax.cu`).
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
-beside it. The kernels hold rows of width 128; narrower rows are padded with
-zero columns, which change neither a dot product nor a norm.
+beside it. The kernels are compiled for row widths that are multiples of 32
+up to 256, as the TPU kernels take any width; other widths are padded with
+zero columns up to the next multiple of 32 (the 140-d HPNet-enriched
+embedding runs at 160), which change neither a dot product nor a norm.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from sednet_tpu_torch.ops import _build
-
-WIDTH = 128
-
-
-def _pad_width(t):
-    e = t.shape[-1]
-    if e > WIDTH:
-        raise ValueError(f"row width {e} exceeds the kernels' {WIDTH}")
-    return t if e == WIDTH else F.pad(t, (0, WIDTH - e)).contiguous()
-
 
 def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048):
     """Plain PyTorch version: new_x, x (B, N, E); inv_b2 (B,) = 1/b^2.
@@ -53,7 +44,7 @@ def _ms_launch(new_x, x, inv_b2):
     if new_x.shape != x.shape or x.dim() != 3:
         raise ValueError("mean_shift_step: new_x and x must both be (B, N, E)")
     e = x.shape[-1]
-    q, xp = _pad_width(new_x), _pad_width(x)
+    q, xp = _build.pad_width(new_x), _build.pad_width(x)
     inv_b2 = inv_b2.to(device=x.device, dtype=torch.float32).reshape(-1)
     inv_b2 = inv_b2.contiguous()
     if inv_b2.shape[0] != x.shape[0]:
@@ -61,9 +52,9 @@ def _ms_launch(new_x, x, inv_b2):
     out = torch.empty_like(q)
     err = _build.lib().sednet_mean_shift_step(
         q.data_ptr(), xp.data_ptr(), inv_b2.data_ptr(), x.shape[0],
-        x.shape[1], out.data_ptr(), _build.stream_of(x))
+        x.shape[1], q.shape[-1], out.data_ptr(), _build.stream_of(x))
     _build.check(err, "mean_shift_step")
-    return out if e == WIDTH else out[..., :e]
+    return out if q.shape[-1] == e else out[..., :e].contiguous()
 
 
 def _inv_b2(bandwidth, like):
@@ -127,15 +118,17 @@ def colmax(rows, cols, bias, thresh: float, gain: float):
         return colmax_plain(rows, cols, bias, thresh, gain)
     for name, t in (("rows", rows), ("cols", cols), ("bias", bias)):
         _build.require_cuda_f32(f"colmax {name}", t)
-    if rows.dim() != 2 or cols.dim() != 2 or bias.shape != cols.shape[:1]:
+    if (rows.dim() != 2 or cols.dim() != 2 or bias.shape != cols.shape[:1]
+            or rows.shape[1] != cols.shape[1]):
         raise ValueError("colmax: rows (R, E), cols (C, E), bias (C,)")
     r, c = rows.shape[0], cols.shape[0]
-    rp, cp = _pad_width(rows), _pad_width(cols)
+    rp, cp = _build.pad_width(rows), _build.pad_width(cols)
     best = torch.empty((r,), dtype=torch.float32, device=rows.device)
     idx = torch.empty((r,), dtype=torch.int32, device=rows.device)
     err = _build.lib().sednet_colmax(
-        rp.data_ptr(), cp.data_ptr(), bias.data_ptr(), r, c, float(thresh),
-        float(gain), best.data_ptr(), idx.data_ptr(), _build.stream_of(rows))
+        rp.data_ptr(), cp.data_ptr(), bias.data_ptr(), r, c, rp.shape[1],
+        float(thresh), float(gain), best.data_ptr(), idx.data_ptr(),
+        _build.stream_of(rows))
     _build.check(err, "colmax")
     colmax.launches += 1
     return best, idx

@@ -1,12 +1,21 @@
 """k-nearest-neighbour graphs of the DGCNN encoder, through kernel K1.
 
-Counterpart of `sednet_tpu/ops/knn.py:138-200`. The reference's dilation
+Counterpart of `sednet_tpu/ops/knn.py:50-54,138-200`. The reference's dilation
 (k2 nearest, every (k2 // k1)-th kept) is the identity at the default
 k1 == k2 == 64.
 """
 from __future__ import annotations
 
 from sednet_tpu_torch.ops.flash_topk import flash_topk
+
+
+def pairwise_sqdist(q, p):
+    """Squared euclidean distances (R, N) between rows of q and p, in the
+    JAX package's order (`sednet_tpu/ops/knn.py:50-54`):
+    (|q|^2 - 2 q.p) + |p|^2."""
+    qq = (q * q).sum(-1)
+    pp = (p * p).sum(-1)
+    return qq[:, None] - 2.0 * (q @ p.T) + pp[None, :]
 
 
 def _dilate(idx_k2, k1: int, k2: int):

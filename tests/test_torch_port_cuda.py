@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from sednet_tpu_torch.ops import cuda_kernels as ck
+from sednet_tpu_torch.ops import fused_edgeconv as fe
 from sednet_tpu_torch.ops.flash_topk import compare_with_plain, flash_topk
 
 
@@ -82,3 +83,69 @@ def test_colmax_kernel_matches_plain_on_ties(cuda):
         bp, ip = ck.colmax_plain(r, c, bias, thresh, gain)
         torch.testing.assert_close(bk, bp, atol=1e-5, rtol=0)
         assert torch.equal(ik, ip)
+
+
+# The HPNet-enriched clustering embedding is 128 + 12 = 140 wide: K2/K2b and
+# K3 run it zero-padded to 160, as any width up to 256.
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [140, 256])
+def test_mean_shift_and_colmax_kernels_at_wide_rows(cuda, e):
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(_unit(rng, 2, 3000, e)).to(cuda)
+    bw = torch.tensor([0.2, 0.35], device=cuda)
+    got = ck.mean_shift_step_batched(x, x, bw)
+    want = ck.mean_shift_step_plain(x, x, 1.0 / (bw * bw))
+    assert got.shape == x.shape and got.is_contiguous()  # feeds the next step
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ck.mean_shift_step_batched(got, x, bw),
+                               ck.mean_shift_step_plain(got, x, 1.0 / (bw * bw)),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(ck.mean_shift_step(x[0], x[0], bw[0]),
+                               want[0], atol=1e-5, rtol=0)
+    rows, cols = _tie_heavy(rng, 3000, 3000, e=e, vocab=40)
+    r, c = torch.from_numpy(rows).to(cuda), torch.from_numpy(cols).to(cuda)
+    bias = torch.from_numpy(rng.randint(0, 5, 3000).astype(np.float32)).to(cuda)
+    for thresh, gain in ((float("inf"), 1.0), (0.5, 0.0)):
+        bk, ik = ck.colmax(r, c, bias, thresh, gain)
+        bp, ip = ck.colmax_plain(r, c, bias, thresh, gain)
+        torch.testing.assert_close(bk, bp, atol=1e-5, rtol=0)
+        assert torch.equal(ik, ip)
+
+
+# K4 against its plain version (tolerances and the near-tie rule: see
+# fused_edgeconv.compare_with_plain), at the encoder's layer shapes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,d,c", [("points_normals", 6, 64),
+                                        ("sqdist", 64, 64),
+                                        ("sqdist", 64, 128),
+                                        ("sqdist", 3, 48)])
+def test_fused_edge_reductions_kernel_matches_plain(cuda, metric, d, c):
+    rng = np.random.RandomState(5)
+    geom = (np.stack([_points_normals(rng, 2000) for _ in range(2)])
+            if metric == "points_normals"
+            else (rng.randn(2, 2000, d) / np.sqrt(d)).astype(np.float32))
+    g = torch.from_numpy(geom).to(cuda)
+    a = torch.from_numpy(rng.randn(2, 2000, c).astype(np.float32)).to(cuda)
+    before = fe.fused_edge_reductions.launches
+    out = fe.fused_edge_reductions(g, a, 64, metric=metric)
+    torch.cuda.synchronize()
+    assert fe.fused_edge_reductions.launches == before + 1
+    assert out[0].shape == (2, 2000, c) and out[3].shape == (2, 2000)
+    cmp = fe.compare_with_plain(g, a, 64, out, metric=metric)
+    assert cmp["bad_rows"] == 0, cmp
+    assert cmp["swapped_rows"] <= 0.01 * cmp["rows"], cmp
+
+
+@pytest.mark.cuda
+def test_fused_edge_reductions_kernel_counts_every_tie(cuda):
+    # integer coordinates: distances are exact, ties at the k-th are real
+    rng = np.random.RandomState(6)
+    g = torch.from_numpy(rng.randint(-4, 5, (1, 3000, 3)).astype(
+        np.float32)).to(cuda)
+    a = torch.from_numpy(rng.randn(1, 3000, 32).astype(np.float32)).to(cuda)
+    mx, sm, sq, cnt = fe.fused_edge_reductions(g, a, 16)
+    pmx, psm, psq, pcnt = fe.fused_edge_reductions_plain(g, a, 16)
+    assert torch.equal(cnt, pcnt) and int(cnt.max()) > 16
+    assert torch.equal(mx, pmx)
+    torch.testing.assert_close(sm, psm, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(sq, psq, atol=1e-4, rtol=1e-5)

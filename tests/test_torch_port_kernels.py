@@ -15,6 +15,7 @@ from sednet_tpu.ops.knn import knn_indices, knn_indices_points_normals
 from sednet_tpu.ops.pallas_kernels import (colmax_pallas,
                                            mean_shift_step_pallas,
                                            mean_shift_step_pallas_batched)
+from sednet_tpu_torch.ops import _build
 from sednet_tpu_torch.ops import cuda_kernels as ck
 from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
                                              topk_plain)
@@ -181,5 +182,12 @@ def test_colmax_plain_matches_pallas_on_ties(rng, case):
 
 
 def test_wrappers_reject_wide_rows():
+    # the kernels take rows up to 256 wide, as the TPU kernels take any
+    # width; narrower rows are zero-padded to a multiple of 32
     with pytest.raises(ValueError):
-        ck._pad_width(torch.zeros(4, 129))
+        _build.pad_width(torch.zeros(4, 257))
+    x = torch.ones(4, 140)
+    padded = _build.pad_width(x)
+    assert padded.shape == (4, 160) and padded.is_contiguous()
+    assert torch.equal(padded[:, :140], x) and not padded[:, 140:].any()
+    assert _build.pad_width(torch.zeros(4, 128)).shape == (4, 128)

@@ -14,13 +14,20 @@ from sednet_tpu_torch.predict import load_models
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["sednet_tpu_torch", "sednet_tpu_torch.cluster",
-           "sednet_tpu_torch.config", "sednet_tpu_torch.data",
-           "sednet_tpu_torch.device", "sednet_tpu_torch.metrics",
-           "sednet_tpu_torch.models", "sednet_tpu_torch.ops._build",
+           "sednet_tpu_torch.cluster.lobpcg",
+           "sednet_tpu_torch.cluster.mean_shift",
+           "sednet_tpu_torch.cluster.spectral", "sednet_tpu_torch.config",
+           "sednet_tpu_torch.data", "sednet_tpu_torch.device",
+           "sednet_tpu_torch.metrics",
+           "sednet_tpu_torch.metrics.segmentation",
+           "sednet_tpu_torch.models", "sednet_tpu_torch.models.sednet",
+           "sednet_tpu_torch.ops._build", "sednet_tpu_torch.ops.chamfer",
            "sednet_tpu_torch.ops.cuda_kernels",
-           "sednet_tpu_torch.ops.flash_topk", "sednet_tpu_torch.ops.graph",
-           "sednet_tpu_torch.ops.guard", "sednet_tpu_torch.ops.knn",
-           "sednet_tpu_torch.predict", "sednet_tpu_torch.weights"]
+           "sednet_tpu_torch.ops.flash_topk",
+           "sednet_tpu_torch.ops.fused_edgeconv",
+           "sednet_tpu_torch.ops.graph", "sednet_tpu_torch.ops.guard",
+           "sednet_tpu_torch.ops.knn", "sednet_tpu_torch.predict",
+           "sednet_tpu_torch.weights"]
 
 
 def test_import_loads_no_jax():
