@@ -18,15 +18,18 @@ is not 0):
   cluster_batch  the batched clustering path (kernel K2b) on the same
              embeddings, held against the per-shape path;
   kernels_slice2  the same for the kernel cases of the reference-default
-             eval: K2b and K3 on the 140-d HPNet-enriched embeddings of the
+             eval: K1 as the spectral affinity (50 farthest on xyz) and
+             the bandwidth (k = 128 on the enriched subsample) call it,
+             K2b and K3 on the 140-d HPNet-enriched embeddings of the
              headline batch, K4 at the encoder's three layer shapes (with
              the time of the index route it replaces: K1 plus the gather);
   predict    the reference-default eval (`predict_shapes`, `bench.py:327`'s
              config: both models, HPNet spectral enrichment, `cluster_batch`
              at E = 140, chamfer-recall metrics) on the same 8 clouds, with
              shapes/s, launches, peak memory, and inst/type IoU and recall
-             held against the JAX package's numbers, a stage breakdown and
-             one run under torch.profiler (device busy share, top kernels);
+             held against the JAX package's numbers, and one run under
+             torch.profiler (device busy share, top kernels, and the host
+             and device time of each stage range of predict_shapes);
   predict_fused  the same with `fused_encoder=True` (kernel K4), held to the
              same numbers and to the `predict` run's labels;
   predict_fold5drop  the same with the type model's fold5drop votes.
@@ -182,19 +185,20 @@ def _knn_inputs(model, x):
     return x1, x2
 
 
-def check_topk(name, q, p, k, metric="sqdist", library=True):
+def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False):
     """K1 against topk_plain, by `compare_with_plain`: distances, returned
     and to the returned neighbours, within 1e-5 of the rounding scale
     1 + max |q|^2; neighbour sets equal except where the plain k-th and
     (k+1)-th distances lie within 1e-6 of it, and then in at most
-    MAX_SWAPPED of the rows."""
+    MAX_SWAPPED of the rows. largest=True: the k farthest."""
     import torch
     from sednet_tpu_torch.ops.flash_topk import (compare_with_plain,
                                                  flash_topk, topk_plain)
 
-    idx, dist = flash_topk(q, p, k, metric=metric, return_distances=True)
+    kw = {"metric": metric, "largest": largest}
+    idx, dist = flash_topk(q, p, k, return_distances=True, **kw)
     torch.cuda.synchronize()
-    cmp = compare_with_plain(q, p, k, idx, dist, metric=metric)
+    cmp = compare_with_plain(q, p, k, idx, dist, **kw)
     if (cmp["bad_rows"] or max(cmp["max_abs_err"], cmp["nbr_err"]) > cmp["tol"]
             or cmp["swapped_rows"] > MAX_SWAPPED * cmp["rows"]):
         raise AssertionError(f"{name}: {cmp}")
@@ -204,13 +208,12 @@ def check_topk(name, q, p, k, metric="sqdist", library=True):
     flops = b * m * n * (2 * 6 + 7 if metric == "points_normals" else 2 * d + 3)
     nbytes = 4 * (q.numel() + p.numel()) + 8 * b * m * k
     bms, by = bound_ms(flops, nbytes)
-    rec = {"case": name, "shape": list(q.shape), "k": k, "metric": metric,
-           **cmp,
-           "ms": time_ms(lambda: flash_topk(q, p, k, metric=metric)),
-           "plain_ms": time_ms(lambda: topk_plain(q, p, k, metric=metric),
+    rec = {"case": name, "shape": list(q.shape), "k": k, **kw, **cmp,
+           "ms": time_ms(lambda: flash_topk(q, p, k, **kw)),
+           "plain_ms": time_ms(lambda: topk_plain(q, p, k, **kw),
                                reps=10, warmup=1),
            "library_ms": (time_ms(lambda: torch.topk(
-               torch.cdist(q, p), k, largest=False)) if library else None),
+               torch.cdist(q, p), k, largest=largest)) if library else None),
            "bound_ms": bms, "bound_by": by}
     return rec
 
@@ -289,25 +292,30 @@ def _fused_layer_inputs(model, x):
 
 
 def _check_wide(emb_e, bw):
-    """K2b and K3 on the 140-d enriched embeddings (run zero-padded to
-    160). K3 on real rows: values within 1e-5 of the plain version's, and
-    each returned index scores within 1e-5 of the plain best."""
+    """K2b and K3 on the 140-d enriched embeddings, run as `cluster_batch`
+    runs them: zero-padded once to 160 (`kernel_width`). Held against the
+    plain versions at 140, so the zero columns are checked too. K3 on real
+    rows: values within 1e-5 of the plain version's, and each returned
+    index scores within 1e-5 of the plain best."""
     import torch
     import torch.nn.functional as F
     from sednet_tpu_torch.ops import cuda_kernels as ck
 
     b, n, e = emb_e.shape
+    emb_p = ck.kernel_width(emb_e)
     inv_b2 = 1.0 / (bw * bw)
-    got = ck.mean_shift_step_batched(emb_e, emb_e, bw)
+    got_p = ck.mean_shift_step_batched(emb_p, emb_p, bw)
+    got = got_p[..., :e]
     want = ck.mean_shift_step_plain(emb_e, emb_e, inv_b2)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if err > 1e-5:
-        raise AssertionError(f"K2b E={e}: max abs error {err} > 1e-5")
+    if err > 1e-5 or float(got_p[..., e:].abs().sum()) != 0.0:
+        raise AssertionError(f"K2b E={e}: max abs error {err} > 1e-5, or "
+                             "padding columns not zero")
     bms, by = bound_ms(b * n * n * (4 * e + 4), 4 * 3 * b * n * e)
     k2b = {"case": f"enriched E={e}", "shape": [b, n, e],
-           "max_abs_err": err, "tol": 1e-5,
-           "ms": time_ms(lambda: ck.mean_shift_step_batched(emb_e, emb_e, bw)),
+           "run_width": emb_p.shape[-1], "max_abs_err": err, "tol": 1e-5,
+           "ms": time_ms(lambda: ck.mean_shift_step_batched(emb_p, emb_p, bw)),
            "plain_ms": time_ms(lambda: ck.mean_shift_step_plain(
                emb_e, emb_e, inv_b2), reps=3),
            # the yardstick of the E=128 case: attention with q scaled by
@@ -319,9 +327,10 @@ def _check_wide(emb_e, bw):
            "bound_ms": bms, "bound_by": by}
 
     rows, cols = emb_e[0], got[0].contiguous()
+    rows_p, cols_p = emb_p[0], got_p[0]
     zeros = torch.zeros(n, device=rows.device)
     inf = float("inf")
-    bk, ik = ck.colmax(rows, cols, zeros, inf, 1.0)
+    bk, ik = ck.colmax(rows_p, cols_p, zeros, inf, 1.0)
     bp, ip = ck.colmax_plain(rows, cols, zeros, inf, 1.0)
     torch.cuda.synchronize()
     err = float((bk - bp).abs().max())
@@ -331,9 +340,9 @@ def _check_wide(emb_e, bw):
         raise AssertionError(f"K3 E={e}: value error {err}, index gap {gap}")
     bms, by = bound_ms(n * n * (2 * e + 4), 4 * (2 * n * e + 3 * n))
     k3 = {"case": f"membership, enriched E={e}", "shape": [n, n, e],
-          "max_abs_err": err, "tol": 1e-5, "index_score_gap": gap,
-          "indices_differ": int((ik != ip).sum()),
-          "ms": time_ms(lambda: ck.colmax(rows, cols, zeros, inf, 1.0)),
+          "run_width": emb_p.shape[-1], "max_abs_err": err, "tol": 1e-5,
+          "index_score_gap": gap, "indices_differ": int((ik != ip).sum()),
+          "ms": time_ms(lambda: ck.colmax(rows_p, cols_p, zeros, inf, 1.0)),
           "plain_ms": time_ms(lambda: ck.colmax_plain(rows, cols, zeros, inf,
                                                       1.0)),
           "library_ms": time_ms(lambda: torch.max(rows @ cols.T, dim=1)),
@@ -448,20 +457,33 @@ def phase_kernels(model, x, emb):
 
 def phase_kernels_slice2(models, x):
     """The kernel cases of the reference-default eval, after the headline
-    (so that the headline runs where it ran before them): K2b and K3 on
-    the 140-d enriched embeddings, K4 at the encoder's three layers."""
+    (so that the headline runs where it ran before them): K1 as the
+    spectral affinity (the 50 farthest on xyz) and the bandwidth (k = 128
+    on the padded enriched subsample) call it, K2b and K3 on the 140-d
+    enriched embeddings, K4 at the encoder's three layers."""
     import numpy as np
     import torch
     from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
+    from sednet_tpu_torch.ops.cuda_kernels import kernel_width
     from sednet_tpu_torch.predict import HEADLINE
 
     emb_e = enriched_embeddings(models, x, torch.Generator().manual_seed(4))
     gen = torch.Generator().manual_seed(0)
+    ns = HEADLINE.ms_num_samples
+    sels = [torch.randperm(N_POINTS, generator=gen)[:ns] for _ in range(BATCH)]
     bw_e = torch.stack([torch.clamp_min(compute_bandwidth(
-        emb_e[i], HEADLINE.ms_num_samples, np.float32(HEADLINE.ms_quantile),
-        generator=gen), 0.003) for i in range(BATCH)])
+        emb_e[i], ns, np.float32(HEADLINE.ms_quantile), sel=sels[i]), 0.003)
+        for i in range(BATCH)])
+    emb_p = kernel_width(emb_e)
+    xs = torch.stack([emb_p[i][sels[i].to(emb_p.device)]
+                      for i in range(BATCH)]).contiguous()
+    xyz = x[..., :3].contiguous()
+    k1 = [check_topk(f"spectral 50 farthest ({BATCH} shapes)", xyz, xyz,
+                     predict_cfg().spectral_knn, largest=True),
+          check_topk(f"bandwidth E={emb_e.shape[-1]} at {emb_p.shape[-1]} "
+                     f"({BATCH} shapes)", xs, xs, 128)]
     k2b_e, k3_e = _check_wide(emb_e, bw_e)
-    out = {"K2b": [k2b_e], "K3": [k3_e],
+    out = {"K1": k1, "K2b": [k2b_e], "K3": [k3_e],
            "K4": [check_fused(name, g, a, K, metric) for name, g, a, metric
                   in _fused_layer_inputs(models["inst"], x)]}
     emit({"phase": "kernels_slice2", "ok": True, "results": out})
@@ -589,26 +611,23 @@ PREDICT_KW = dict(num_points=N_POINTS, knn=K, embed=128, hpnet_embed=True,
                   ms_num_samples=5000)   # bench.py:327
 
 
-def enriched_embeddings(models, x, gen):
-    """The clustering embedding of `predict_shapes`: the raw inst
-    embedding through HPNet enrichment per shape, L2-normalised (B, N,
-    140)."""
-    import torch
-    from sednet_tpu_torch.cluster.spectral import hpnet_process
+def predict_cfg(**kw):
     from sednet_tpu_torch.config import Config
-    from sednet_tpu_torch.predict import make_forward, spectral_embed
 
-    cfg = Config(**PREDICT_KW)
+    return Config(**PREDICT_KW, **kw)
+
+
+def enriched_embeddings(models, x, gen):
+    """The clustering embedding of `predict_shapes` (B, N, 140), by its
+    own `enrich_embedding` on the raw inst embedding of each shape."""
+    import torch
+    from sednet_tpu_torch.predict import enrich_embedding, make_forward
+
+    cfg = predict_cfg()
     _, emb, _ = make_forward(models["inst"])(x)
-    out = []
-    for i in range(x.shape[0]):
-        v, ent = spectral_embed(x[i, :, :3], x[i, :, 3:6], cfg,
-                                generator=gen)
-        e = hpnet_process(emb[i], x[i, :, :3], x[i, :, 3:6],
-                          normal_smooth_w=cfg.normal_smooth_w,
-                          cached_eigvecs=v, cached_eig_entropy=ent)
-        out.append(e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12))
-    return torch.stack(out).contiguous()
+    return torch.stack([enrich_embedding(
+        emb[i], x[i, :, :3], x[i, :, 3:6], cfg, generator=gen)
+        for i in range(x.shape[0])]).contiguous()
 
 
 def _forward_peak_gib(fwd, x):
@@ -621,74 +640,55 @@ def _forward_peak_gib(fwd, x):
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def _predict_stages(models, batch, cfg, inputs):
-    """Seconds of each stage of one predict_shapes call: the same public
-    calls in the same order, each stage ended by a synchronize (host
-    clock)."""
-    import numpy as np
-    import torch
-    from sednet_tpu_torch.cluster.mean_shift import cluster_batch
-    from sednet_tpu_torch.cluster.spectral import (compute_entropy,
-                                                   hpnet_process,
-                                                   normal_affinity_topk,
-                                                   spectral_eigvecs)
-    from sednet_tpu_torch.metrics import siou_matched_segments_usecd_batch
-    from sednet_tpu_torch.predict import (cluster_settings,
-                                          make_first_layer_idx, make_forward,
-                                          make_tta_type_log_prob)
+def _stage_times(trace_path):
+    """Each stage range of predict_shapes (`predict.STAGES`) from a chrome
+    trace of one call: its host ms, and the device ms of the kernels,
+    copies and fills whose launch (the runtime call with the same
+    correlation id) lies inside it. The kernels of `csrc/` come through
+    ctypes, outside any torch op, so the profiler's own per-op device
+    times miss them; the launch call does not."""
+    from sednet_tpu_torch.predict import STAGES
 
-    x0s, sels = inputs
-    x = torch.from_numpy(np.concatenate([batch["points"], batch["normals"]],
-                                        -1)).to(DEVICE)
-    t = {}
-    clock = [time.time()]
-
-    def lap(stage):
-        torch.cuda.synchronize()
-        now = time.time()
-        t[stage] = t.get(stage, 0.0) + now - clock[0]
-        clock[0] = now
-
-    idx1 = None if cfg.fused_encoder else make_first_layer_idx(cfg)(x)
-    type_lp = make_tta_type_log_prob(models["type"], cfg, False, False)(x,
-                                                                        idx1)
-    lap("type_forward_s")
-    _, emb, _ = make_forward(models["inst"], cfg.fused_encoder)(x, idx1)
-    lap("inst_forward_s")
-    embs = []
-    for i in range(x.shape[0]):
-        xyz, nrm = x[i, :, :3], x[i, :, 3:6]
-        aff = normal_affinity_topk(xyz, nrm, sigma=cfg.spectral_sigma,
-                                   k=cfg.spectral_knn)
-        lap("affinity_s")
-        v = spectral_eigvecs(aff, x0s[i], k=cfg.spectral_eigvecs)
-        del aff
-        lap("lobpcg_s")
-        e = hpnet_process(emb[i], xyz, nrm, normal_smooth_w=cfg.normal_smooth_w,
-                          cached_eigvecs=v, cached_eig_entropy=compute_entropy(v))
-        embs.append(e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12))
-        lap("entropy_concat_s")
-    labels, _, _ = cluster_batch(torch.stack(embs).contiguous(), sels=sels,
-                                 **cluster_settings(cfg, cfg.num_points))
-    lap("cluster_batch_s")
-    siou_matched_segments_usecd_batch(
-        list(batch["labels"].astype(np.int64)), list(labels.cpu().numpy()),
-        list(type_lp.argmax(-1).cpu().numpy()),
-        list(batch["prim"].astype(np.int64)), list(batch["points"]),
-        device=DEVICE)
-    lap("metrics_s")
-    t["total_s"] = sum(t.values())
-    return t
+    with open(trace_path) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev.get("ph") == "X"]
+    spans, launch, dev = [], {}, []
+    for ev in events:
+        cat, corr = ev.get("cat"), ev.get("args", {}).get("correlation")
+        if cat == "user_annotation" and ev["name"] in STAGES:
+            spans.append((ev["ts"], ev["ts"] + ev["dur"],
+                          ev["name"].split("/")[1]))
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launch[corr] = ev["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev.append((corr, ev["dur"]))
+    out = {n.split("/")[1]: {"host_ms": 0.0, "device_ms": 0.0, "ranges": 0}
+           for n in STAGES}
+    for t0, t1, name in spans:
+        out[name]["host_ms"] += (t1 - t0) / 1e3
+        out[name]["ranges"] += 1
+    outside = 0.0
+    for corr, dur in dev:
+        t = launch.get(corr, -1.0)
+        hit = next((n for t0, t1, n in spans if t0 <= t <= t1), None)
+        if hit is None:
+            outside += dur / 1e3
+        else:
+            out[hit]["device_ms"] += dur / 1e3
+    out["outside_stages"] = {"device_ms": outside}
+    return out
 
 
 def _device_profile(run):
     """One run under torch.profiler: the wall time, the summed device time
     of its kernels (the events on the device, not the host ops that
     launched them, which carry the same time again), their share of the
-    wall time, and the top kernels."""
+    wall time, the top kernels, and each stage's host and device time
+    (`_stage_times`; the trace is kept in build/predict_trace.json)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from sednet_tpu_torch.predict import STAGES
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -697,15 +697,20 @@ def _device_profile(run):
         torch.cuda.synchronize()
         wall = time.time() - t0
 
+    # the stage ranges also show on the device's timeline: not kernels
     rows = [(ev.key, float(ev.self_device_time_total), ev.count)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
+            if ev.device_type == DeviceType.CUDA and ev.key not in STAGES]
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows) / 1e6
     rows.sort(key=lambda r: -r[1])
+    trace = os.path.join(ROOT, "build", "predict_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
     return {"wall_s": wall, "device_kernel_s": busy if rows else None,
             "device_busy_share": busy / wall if rows else None,
-            "top": [[k[:60], us / 1e3, n] for k, us, n in rows[:10]]}
+            "top": [[k[:60], us / 1e3, n] for k, us, n in rows[:10]],
+            "stages": _stage_times(trace)}
 
 
 def phase_predict(name, models, batch, inputs, *, fused=False,
@@ -716,12 +721,11 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
     median of `reps` more, each ended by a synchronize."""
     import numpy as np
     import torch
-    from sednet_tpu_torch.config import Config
     from sednet_tpu_torch.predict import (make_forward,
                                           make_tta_type_log_prob,
                                           predict_shapes)
 
-    cfg = Config(**PREDICT_KW, fused_encoder=fused)
+    cfg = predict_cfg(fused_encoder=fused)
     tta = make_tta_type_log_prob(models["type"], cfg, False, fold5drop)
     fwd = make_forward(models["inst"], fused=fused)
     x0s, sels = inputs
@@ -760,7 +764,6 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
         ts.append(time.time() - t0)
     med = float(np.median(ts))
     if not fold5drop:
-        stages = _predict_stages(models, batch, cfg, inputs)
         profile = _device_profile(run)
     rec = {"phase": name, "ok": ok, "shapes_per_s": BATCH / med,
            "batch_s_median": med, "batch_s_min": min(ts),
@@ -770,7 +773,7 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
                           r["num_clusters"]] for r in res],
            "guard_capped": sum(r["guard_capped"] for r in res),
            "launches": counts, "peak_mem_gib": peak_gib,
-           **({} if fold5drop else {"stages": stages, "profile": profile}),
+           **({} if fold5drop else {"profile": profile}),
            "forward_peak_gib": _forward_peak_gib(fwd, torch.from_numpy(
                np.concatenate([batch["points"], batch["normals"]], -1)).to(
                    DEVICE))}

@@ -19,7 +19,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from sednet_tpu_torch.ops.cuda_kernels import (colmax, mean_shift_step,
+from sednet_tpu_torch.ops.cuda_kernels import (colmax, kernel_width,
+                                               mean_shift_step,
                                                mean_shift_step_batched)
 from sednet_tpu_torch.ops.flash_topk import K_MAX, flash_topk
 from sednet_tpu_torch.ops.guard import guard_sqrt
@@ -156,6 +157,8 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
     sel: optional subsample indices, one tensor for every attempt or a
     list with one per attempt (the last repeats). bandwidth: optional
     fixed bandwidth for every attempt."""
+    e = x.shape[-1]
+    x = kernel_width(x)
     sels = sel if isinstance(sel, (list, tuple)) else [sel]
 
     def attempt(q, i):
@@ -171,7 +174,8 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
         res = attempt(np.float32(res.quantile * np.float32(retry_factor)),
                       tries)
     m = min(num_samples, x.shape[0])
-    res = replace(res, tries=tries, capped=res.num_clusters > max_clusters,
+    res = replace(res, shifted=res.shifted[:, :e], tries=tries,
+                  capped=res.num_clusters > max_clusters,
                   bw_capped=int(res.quantile * np.float32(m)) > min(m - 1, 256))
     return _cap(res, max_clusters) if res.capped else res
 
@@ -193,6 +197,7 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
     Returns (labels (B, N) int64, num_clusters (B,) int64, flags) with
     flags {"capped", "bw_capped"} as (B,) bool arrays."""
     b = x.shape[0]
+    x = kernel_width(x)
     sels = [s if isinstance(s, (list, tuple)) else [s]
             for s in (sels if sels is not None else [None] * b)]
     bw = torch.stack([torch.clamp_min(compute_bandwidth(

@@ -139,11 +139,12 @@ def hpnet_process(embedding, xyz, normals, *, type_log_prob=None,
     return torch.cat([p * w for p, w in zip(parts, weights)], -1)
 
 
-def _entropy_weighted_concat(emb, v, normal_smooth_w: float):
-    """Entropy weighting, concatenation and row L2 normalisation
+def _entropy_weighted_concat(emb, v, normal_smooth_w: float, v_ent=None):
+    """`hpnet_process` of [embedding, eigenvectors] with the eigenvectors
+    given (v_ent: their entropy, when known), rows L2-normalised
     (generate_predictions_aug.py:371-377)."""
-    e = torch.cat([emb * (1.7 - compute_entropy(emb)),
-                   v * (normal_smooth_w - compute_entropy(v))], -1)
+    e = hpnet_process(emb, None, None, normal_smooth_w=normal_smooth_w,
+                      cached_eigvecs=v, cached_eig_entropy=v_ent)
     return e / torch.clamp_min(torch.linalg.vector_norm(e, dim=-1,
                                                         keepdim=True), 1e-12)
 

@@ -13,12 +13,22 @@ beside it. The kernels are compiled for row widths that are multiples of 32
 up to 256, as the TPU kernels take any width; other widths are padded with
 zero columns up to the next multiple of 32 (the 140-d HPNet-enriched
 embedding runs at 160), which change neither a dot product nor a norm.
+A loop of steps pads once (`kernel_width`) so that no step copies.
 """
 from __future__ import annotations
 
 import torch
 
 from sednet_tpu_torch.ops import _build
+
+
+def kernel_width(x):
+    """x (..., E) on a CUDA device zero-padded once to the width the
+    kernels run at (`_build.pad_width`); a CPU tensor as it is, since the
+    plain versions take any width. A mean-shift step keeps zero columns
+    zero, so a loop runs at this width and slices once at its end."""
+    return _build.pad_width(x) if x.is_cuda else x
+
 
 def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048):
     """Plain PyTorch version: new_x, x (B, N, E); inv_b2 (B,) = 1/b^2.

@@ -17,7 +17,9 @@ Counterpart of `bench.py:157-182` and `sednet_tpu/predict.py:50-537`:
 The JAX package's async/finalize split of `predict_shapes` is one call
 here. Its random inputs (the LOBPCG start block and the bandwidth
 subsamples of each shape) come from a `torch.Generator`, or are injected
-(`x0s`, `sels`) by the tests.
+(`x0s`, `sels`) by the tests. Its stages run inside
+`torch.profiler.record_function` ranges named `STAGES`, so that a profile
+of one call gives each stage's host and device time.
 """
 from __future__ import annotations
 
@@ -25,10 +27,12 @@ import os
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from sednet_tpu_torch.cluster.mean_shift import cluster_batch, guard_mean_shift
-from sednet_tpu_torch.cluster.spectral import (MATFREE_TODO, compute_entropy,
-                                               hpnet_process,
+from sednet_tpu_torch.cluster.spectral import (MATFREE_TODO,
+                                               _entropy_weighted_concat,
+                                               compute_entropy,
                                                normal_affinity_topk,
                                                spectral_eigvecs)
 from sednet_tpu_torch.config import Config
@@ -41,6 +45,11 @@ from sednet_tpu_torch.weights import load_npz
 
 # bench.py:173 clusters with 5000 samples; the rest are Config's defaults
 HEADLINE = Config(ms_num_samples=5000)
+
+# the record_function ranges of predict_shapes, in the order they run
+STAGES = tuple(f"predict_shapes/{s}" for s in (
+    "type_forward", "inst_forward", "affinity", "lobpcg", "entropy_concat",
+    "cluster_batch", "metrics"))
 
 
 def cluster_settings(cfg: Config, n: int) -> dict:
@@ -231,14 +240,32 @@ def spectral_embed(xyz, normals, cfg: Config, shape_id=None,
         matfree = xyz.shape[0] > cfg.spectral_dense_max_n
     if matfree:
         raise NotImplementedError(MATFREE_TODO)
-    aff = normal_affinity_topk(xyz, normals, sigma=cfg.spectral_sigma,
-                               k=cfg.spectral_knn)
-    v = spectral_eigvecs(aff, x0, generator, k=cfg.spectral_eigvecs)
+    with record_function("predict_shapes/affinity"):
+        aff = normal_affinity_topk(xyz, normals, sigma=cfg.spectral_sigma,
+                                   k=cfg.spectral_knn)
+    with record_function("predict_shapes/lobpcg"):
+        v = spectral_eigvecs(aff, x0, generator, k=cfg.spectral_eigvecs)
     del aff
-    ent = compute_entropy(v)
+    with record_function("predict_shapes/entropy_concat"):
+        ent = compute_entropy(v)
     if cache is not None and shape_id is not None:
         cache.put(shape_id, v, ent)
     return v, ent
+
+
+def enrich_embedding(embedding, xyz, normals, cfg: Config, *, shape_id=None,
+                     cache: SpectralCache | None = None, x0=None,
+                     generator=None):
+    """One shape's clustering embedding under cfg.hpnet_embed: the raw
+    embedding (N, K) and the shape's eigenvectors (`spectral_embed`),
+    entropy-weighted and concatenated by `hpnet_process`, rows
+    L2-normalised (N, K + spectral_eigvecs) (`sednet_tpu/predict.py:
+    346-365`)."""
+    v, ent = spectral_embed(xyz, normals, cfg, shape_id=shape_id,
+                            cache=cache, x0=x0, generator=generator)
+    with record_function("predict_shapes/entropy_concat"):
+        return _entropy_weighted_concat(embedding, v, cfg.normal_smooth_w,
+                                        ent)
 
 
 @torch.no_grad()
@@ -268,44 +295,40 @@ def predict_shapes(model_type, model_inst, batch: dict, cfg: Config, *,
         forward_fn = make_forward(model_inst, fused=cfg.fused_encoder)
     # one first-layer graph serves the type votes and the inst forward,
     # unless the fused encoder runs (it builds none)
-    idx1 = None if cfg.fused_encoder else make_first_layer_idx(cfg)(x)
-    type_lp = tta_fn(x, idx1)
-    _, embedding, edge_logits = forward_fn(x, idx1)
+    with record_function("predict_shapes/type_forward"):
+        idx1 = None if cfg.fused_encoder else make_first_layer_idx(cfg)(x)
+        type_lp = tta_fn(x, idx1)
+    with record_function("predict_shapes/inst_forward"):
+        _, embedding, edge_logits = forward_fn(x, idx1)
 
     b = x.shape[0]
     xyz = x[..., :3]
     nrm = x[..., 3:6] if x.shape[-1] >= 6 else torch.from_numpy(nrm_np).to(dev)
     if cfg.hpnet_embed:
-        embs = []
-        for i in range(b):
-            v, ent = spectral_embed(
-                xyz[i], nrm[i], cfg,
-                shape_id=shape_ids[i] if shape_ids is not None else None,
-                cache=cache, x0=x0s[i] if x0s is not None else None,
-                generator=generator)
-            e = hpnet_process(embedding[i], xyz[i], nrm[i],
-                              normal_smooth_w=cfg.normal_smooth_w,
-                              cached_eigvecs=v, cached_eig_entropy=ent)
-            embs.append(e / torch.clamp_min(
-                torch.linalg.vector_norm(e, dim=-1, keepdim=True), 1e-12))
-        emb_n = torch.stack(embs)
+        emb_n = torch.stack([enrich_embedding(
+            embedding[i], xyz[i], nrm[i], cfg,
+            shape_id=shape_ids[i] if shape_ids is not None else None,
+            cache=cache, x0=x0s[i] if x0s is not None else None,
+            generator=generator) for i in range(b)])
     else:
         emb_n = embedding / torch.clamp_min(
             torch.linalg.vector_norm(embedding, dim=-1, keepdim=True), 1e-12)
 
-    labels, nums, flags = cluster_batch(
-        emb_n.contiguous(), generator=generator, sels=sels,
-        **cluster_settings(cfg, cfg.num_points))
-    labels_np = labels.cpu().numpy()
+    with record_function("predict_shapes/cluster_batch"):
+        labels, nums, flags = cluster_batch(
+            emb_n.contiguous(), generator=generator, sels=sels,
+            **cluster_settings(cfg, cfg.num_points))
+        labels_np = labels.cpu().numpy()
     pred_prim = type_lp.argmax(-1).cpu().numpy()
     edge_prob = (torch.softmax(edge_logits, -1).cpu().numpy()
                  if edge_logits is not None else
                  np.zeros(pred_prim.shape + (2,), np.float32))
-    mets = siou_matched_segments_usecd_batch(
-        [np.asarray(t).astype(np.int64) for t in batch["labels"]],
-        list(labels_np), list(pred_prim),
-        [np.asarray(p).astype(np.int64) for p in batch["prim"]],
-        list(pts), device=dev)
+    with record_function("predict_shapes/metrics"):
+        mets = siou_matched_segments_usecd_batch(
+            [np.asarray(t).astype(np.int64) for t in batch["labels"]],
+            list(labels_np), list(pred_prim),
+            [np.asarray(p).astype(np.int64) for p in batch["prim"]],
+            list(pts), device=dev)
     return [{"cluster_ids": labels_np[i],
              "pred_primitives": pred_prim[i],
              "edge_prob": edge_prob[i],

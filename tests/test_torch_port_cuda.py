@@ -11,7 +11,9 @@ import torch
 
 from sednet_tpu_torch.ops import cuda_kernels as ck
 from sednet_tpu_torch.ops import fused_edgeconv as fe
-from sednet_tpu_torch.ops.flash_topk import compare_with_plain, flash_topk
+from sednet_tpu_torch.cluster import cluster_batch
+from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
+                                             topk_plain)
 
 
 def _points_normals(rng, n):
@@ -40,7 +42,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric,d,k,largest", [
     ("sqdist", 64, 64, False), ("points_normals", 6, 64, False),
-    ("sqdist", 128, 128, False), ("sqdist", 16, 16, True)])
+    ("sqdist", 128, 128, False), ("sqdist", 16, 16, True),
+    ("sqdist", 3, 50, True)])
 def test_flash_topk_kernel_matches_plain(cuda, metric, d, k, largest):
     rng = np.random.RandomState(1)
     x = np.stack([_points_normals(rng, 2000) for _ in range(2)]) \
@@ -58,6 +61,20 @@ def test_flash_topk_kernel_matches_plain(cuda, metric, d, k, largest):
     assert cmp["bad_rows"] == 0 and cmp["max_abs_err"] <= cmp["tol"], cmp
     assert cmp["nbr_err"] <= cmp["tol"], cmp
     assert cmp["swapped_rows"] <= 0.01 * cmp["rows"], cmp
+
+
+# The spectral affinity's 50 farthest on xyz, where CAD clouds hold exact
+# ties: on integer coordinates every distance is exact, so the farthest
+# sets must be the plain version's, ties broken by the lower index alike.
+@pytest.mark.cuda
+def test_flash_topk_kernel_farthest_on_exact_ties(cuda):
+    rng = np.random.RandomState(7)
+    xyz = torch.from_numpy(rng.randint(-4, 5, (3000, 3)).astype(
+        np.float32)).to(cuda)
+    idx, dist = flash_topk(xyz, xyz, 50, largest=True, return_distances=True)
+    pdist, pidx = topk_plain(xyz, xyz, 50, largest=True)
+    assert torch.equal(dist, pdist)
+    assert torch.equal(idx.sort(-1).values, pidx.sort(-1).values)
 
 
 @pytest.mark.cuda
@@ -110,6 +127,27 @@ def test_mean_shift_and_colmax_kernels_at_wide_rows(cuda, e):
         bp, ip = ck.colmax_plain(r, c, bias, thresh, gain)
         torch.testing.assert_close(bk, bp, atol=1e-5, rtol=0)
         assert torch.equal(ik, ip)
+
+
+# cluster_batch at the enriched width pads once and runs every step at
+# 160: the same partitions as on the CPU (plain versions at 140) on
+# well-separated clusters.
+@pytest.mark.cuda
+def test_cluster_batch_at_wide_rows_matches_cpu(cuda):
+    rng = np.random.RandomState(8)
+    centers = _unit(rng, 6, 140)
+    lab = rng.randint(0, 6, (2, 2000))
+    x = centers[lab] + 0.03 * rng.randn(2, 2000, 140).astype(np.float32)
+    x = torch.from_numpy(x / np.linalg.norm(x, axis=-1, keepdims=True))
+    sels = [torch.from_numpy(rng.permutation(2000)[:1000]) for _ in range(2)]
+    before = ck.mean_shift_step_batched.launches
+    got, nums, _ = cluster_batch(x.to(cuda), num_samples=1000, sels=sels)
+    assert ck.mean_shift_step_batched.launches > before
+    want, wnums, _ = cluster_batch(x, num_samples=1000, sels=sels)
+    assert torch.equal(nums, wnums)
+    for g, w in zip(got.cpu().numpy(), want.numpy()):
+        pairs = set(zip(g.tolist(), w.tolist()))
+        assert len(pairs) == len(set(g.tolist())) == len(set(w.tolist()))
 
 
 # K4 against its plain version (tolerances and the near-tie rule: see

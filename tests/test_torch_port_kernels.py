@@ -191,3 +191,10 @@ def test_wrappers_reject_wide_rows():
     assert padded.shape == (4, 160) and padded.is_contiguous()
     assert torch.equal(padded[:, :140], x) and not padded[:, 140:].any()
     assert _build.pad_width(torch.zeros(4, 128)).shape == (4, 128)
+
+
+def test_kernel_width_pads_only_for_the_card():
+    # a CPU tensor goes to the plain versions as it is; the main path's
+    # loops pad a CUDA tensor once (see test_torch_port_cuda.py)
+    x = torch.ones(2, 8, 140)
+    assert ck.kernel_width(x) is x

@@ -217,8 +217,11 @@ def test_predict_shapes_matches_jax(shapes, jax_predicted, fused):
 # 10-iteration solve does not converge, and the row normalisation of the
 # eigenvectors divides rows of norm ~1e-6, so float32 rounding of the two
 # solves moves the enriched embedding (see test_torch_port_spectral.py).
-# Measured: one shape identical, the other at ARI 0.977 (inst_iou 0.8091
-# vs 0.8011), the same cluster counts and recall.
+# Measured (port vs JAX): shape 0 identical (ARI 1.0, 5 clusters, inst_iou
+# 0.78136, type_iou 0.8, recall 0.8333); shape 1 at ARI 0.977 (10
+# clusters, inst_iou 0.80913 vs 0.80106, a gap of 0.0081; type_iou 0.8333
+# and recall 1.0 in both). So counts, recall and type IoU are held exact,
+# inst_iou at 0.02, about twice the measured gap.
 def test_predict_shapes_from_jax_start_block(shapes, jax_predicted):
     _, batch = shapes
     want, _, (x0s, sels) = jax_predicted
@@ -231,7 +234,7 @@ def test_predict_shapes_from_jax_start_block(shapes, jax_predicted):
         assert g["num_clusters"] == w["num_clusters"]
         assert g["inst_iou"] == pytest.approx(w["inst_iou"], abs=0.02)
         assert g["inst_recall"] == pytest.approx(w["inst_recall"], abs=1e-12)
-        assert g["type_iou"] == pytest.approx(w["type_iou"], abs=0.2)
+        assert g["type_iou"] == pytest.approx(w["type_iou"], abs=1e-12)
 
 
 def test_load_config_reads_jax_config_files(tmp_path):
