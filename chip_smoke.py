@@ -22,7 +22,7 @@ is not 0):
              the bandwidth (k = 128 on the enriched subsample) call it,
              K2b and K3 on the 140-d HPNet-enriched embeddings of the
              headline batch, K4 at the encoder's three layer shapes (with
-             the time of the index route it replaces: K1 plus the gather);
+             the time of the index route it replaces: K1 plus K6);
   predict    the reference-default eval (`predict_shapes`, `bench.py:327`'s
              config: both models, HPNet spectral enrichment, `cluster_batch`
              at E = 140, chamfer-recall metrics) on the same 8 clouds, with
@@ -31,8 +31,25 @@ is not 0):
              torch.profiler (device busy share, top kernels, and the host
              and device time of each stage range of predict_shapes);
   predict_fused  the same with `fused_encoder=True` (kernel K4), held to the
-             same numbers and to the `predict` run's labels;
-  predict_fold5drop  the same with the type model's fold5drop votes.
+             same numbers and to the `predict` run's labels, unprofiled;
+  predict_fold5drop  the same with the type model's fold5drop votes;
+  kernels_slice3  K6 (the gather-reduce of the index-route edge conv) at
+             the encoder's three layer shapes on the real tables and graphs,
+             and K5 (the sorted segment sum of the matrix-free A^T v) on the
+             farthest-50 graph of a 32768-point cloud at m = 12 and 36,
+             each against its plain version (K5 also against index_add_,
+             bit-identical across two launches, 0 at empty destinations);
+  spectral_matfree  the matrix-free LOBPCG (`spectral_eigvecs_matfree`) in
+             each of its five A^T v layouts on 2 clouds of 32768 points:
+             seconds and K5 launches per solve, each layout's matvec against
+             the scatter layout's, unit rows; then the "pallas" (K5)
+             enrichment through `cluster_batch` and the metrics, held to the
+             JAX package's numbers on those clouds;
+  predict_bigcloud  `predict_shapes` on the same 2 clouds under bench.py's
+             config at N = 32768, where the auto policy takes the
+             matrix-free solver: shapes/s, stage times, launches, peak
+             memory (below the 4 GiB of one dense 32768^2 affinity), metrics
+             held to the JAX package's numbers.
 
 The line before the last is the `kernels` summary, the last line the
 device record. Without a CUDA device, or outside a checkout of the repo,
@@ -46,6 +63,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 
 # Per-shape matched IoU of the JAX package's headline pipeline on the same 8
 # eval shapes and checkpoint, run on the CPU:
@@ -95,6 +113,23 @@ REF_PREDICT_FOLD5 = {
 }
 
 
+# The same for 2 clouds of 32768 points (`headline_shapes(2, 32768)`), where
+# the auto policy takes the matrix-free solver:
+#   JAX_PLATFORMS=cpu python scripts/jax_predict_reference.py --points 32768 \
+#       --shapes 2 --keys 7 8 9 --fold5drop-keys
+REF_PREDICT_BIG = {
+    "key7": {"inst_iou": [0.9821013912732003, 0.9386142681244404],
+             "type_iou": [0.5, 0.8333333333333334],
+             "inst_recall": [1.0, 1.0]},
+    "key8": {"inst_iou": [0.982449278561147, 0.9385843244186073],
+             "type_iou": [0.5, 0.8333333333333334],
+             "inst_recall": [1.0, 1.0]},
+    "key9": {"inst_iou": [0.9818696569889881, 0.9402568988392814],
+             "type_iou": [0.5, 0.8333333333333334],
+             "inst_recall": [1.0, 1.0]},
+}
+
+
 def _ref_means(runs):
     return {m: [float(sum(r[m]) / len(r[m])) for r in runs]
             for m in ("inst_iou", "type_iou", "inst_recall")}
@@ -106,6 +141,9 @@ def _ref_means(runs):
 _KEY_MEANS = _ref_means(REF_PREDICT.values())
 REF_PREDICT_MEAN = {m: sum(v) / len(v) for m, v in _KEY_MEANS.items()}
 PREDICT_TOL = {m: max(0.03, max(v) - min(v)) for m, v in _KEY_MEANS.items()}
+_KEY_MEANS_BIG = _ref_means(REF_PREDICT_BIG.values())
+REF_BIG_MEAN = {m: sum(v) / len(v) for m, v in _KEY_MEANS_BIG.items()}
+BIG_TOL = {m: max(0.03, max(v) - min(v)) for m, v in _KEY_MEANS_BIG.items()}
 # K1 may swap neighbours only inside a near-tie, at the distance of the one
 # it replaced, and in at most this share of the rows
 MAX_SWAPPED = 0.01
@@ -114,10 +152,15 @@ PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 BATCH, N_POINTS, K = 8, 10000, 64
+HEADLINE_REPS = 6   # timed headline batches (their spread is about 1%)
+BIG_BATCH, BIG_POINTS = 2, 32768   # the matrix-free eval's clouds
 DEVICE = "cuda"
+BIG_MEM_GIB = 4.0   # one dense 32768 x 32768 float32 affinity
 
 
 def emit(rec):
+    if "phase" in rec:   # seconds since the smoke started, per phase
+        rec = {**rec, "at_s": time.time() - T_START}
     print(json.dumps(rec), flush=True)
 
 
@@ -230,13 +273,12 @@ def _tol_trace(step, x, iterations=50, tol=1e-6):
 
 
 def _nonfused_route(geom, a, k, metric):
-    """The index route of the same reductions: K1's graph, then the plain
-    gather and reductions over K (`ops/graph.py edge_conv_factored`)."""
+    """The index route of the same reductions, as `edge_conv_factored` runs
+    it: K1's graph, then K6's gather-reduce over it."""
     from sednet_tpu_torch.ops.flash_topk import flash_topk
-    from sednet_tpu_torch.ops.graph import gather_neighbors
+    from sednet_tpu_torch.ops.graph import gather_reduce
 
-    g = gather_neighbors(a, flash_topk(geom, geom, k, metric=metric))
-    return g.amax(2), g.sum(2), (g * g).sum(2)
+    return gather_reduce(a, flash_topk(geom, geom, k, metric=metric))
 
 
 def check_fused(name, geom, a, k, metric):
@@ -494,10 +536,12 @@ def _wrappers():
     from sednet_tpu_torch.ops import cuda_kernels as ck
     from sednet_tpu_torch.ops.flash_topk import flash_topk
     from sednet_tpu_torch.ops.fused_edgeconv import fused_edge_reductions
+    from sednet_tpu_torch.ops.graph import gather_reduce
 
     return {"K1": flash_topk, "K2": ck.mean_shift_step,
             "K2b": ck.mean_shift_step_batched, "K3": ck.colmax,
-            "K4": fused_edge_reductions}
+            "K4": fused_edge_reductions, "K5": ck.segsum_sorted_scan,
+            "K6": gather_reduce}
 
 
 def reset_counts():
@@ -522,7 +566,7 @@ def phase_headline(model, x, shapes):
     torch.cuda.synchronize()
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name in ("K1", "K2", "K3"):
+    for name in ("K1", "K2", "K3", "K6"):
         if counts[name] <= 0:
             raise AssertionError(f"main path launched {name} no time")
     labels_np, types_np = labels.cpu().numpy(), types.cpu().numpy()
@@ -533,7 +577,7 @@ def phase_headline(model, x, shapes):
     ok = abs(inst - ref_inst) <= IOU_TOL and abs(typ - ref_type) <= IOU_TOL
 
     ts, runs = [], []
-    for _ in range(10):
+    for _ in range(HEADLINE_REPS):
         t0 = time.time()
         lab, ty = segment_batch(model, x, generator=gen)
         torch.cuda.synchronize()
@@ -546,10 +590,12 @@ def phase_headline(model, x, shapes):
         forward(model, x)
         torch.cuda.synchronize()
         fw.append(time.time() - t0)
+    peaks = _forward_peaks(lambda v: forward(model, v), x)
     rec = {"phase": "headline", "ok": ok, "shapes_per_s": BATCH / med,
            "batch_s_median": med, "batch_s_min": min(ts),
-           "batch_s_max": max(ts), "timing": "median of 10 synced batches",
-           "forward_s_median": float(np.median(fw)),
+           "batch_s_max": max(ts),
+           "timing": f"median of {HEADLINE_REPS} synced batches",
+           "forward_s_median": float(np.median(fw)), **peaks,
            "inst_iou": inst, "type_iou": typ,
            "per_shape": [[a, b] for a, b in per],
            "inst_iou_over_timed_runs": float(np.mean([r[0] for r in runs])),
@@ -640,6 +686,32 @@ def _forward_peak_gib(fwd, x):
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+def _forward_peaks(fwd, x):
+    """The forward's peak device memory and time through K6, and with the
+    edge convolutions' gather-reduce swapped for its plain version (the
+    materialised (B, N, K, C) gather the index route had before K6)."""
+    import torch
+    from sednet_tpu_torch.ops import graph
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fwd(x)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    out = {"forward_peak_gib": _forward_peak_gib(fwd, x),
+           "forward_s_k6": min(timed() for _ in range(3))}
+    kernel = graph.gather_reduce
+    graph.gather_reduce = graph.gather_reduce_plain
+    try:
+        out["forward_peak_gib_plain_gather"] = _forward_peak_gib(fwd, x)
+        out["forward_s_plain_gather"] = min(timed() for _ in range(3))
+    finally:
+        graph.gather_reduce = kernel
+    return out
+
+
 def _stage_times(trace_path):
     """Each stage range of predict_shapes (`predict.STAGES`) from a chrome
     trace of one call: its host ms, and the device ms of the kernels,
@@ -679,12 +751,12 @@ def _stage_times(trace_path):
     return out
 
 
-def _device_profile(run):
+def _device_profile(run, trace_name="predict_trace.json"):
     """One run under torch.profiler: the wall time, the summed device time
     of its kernels (the events on the device, not the host ops that
     launched them, which carry the same time again), their share of the
     wall time, the top kernels, and each stage's host and device time
-    (`_stage_times`; the trace is kept in build/predict_trace.json)."""
+    (`_stage_times`; the trace is kept in build/<trace_name>)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -704,7 +776,7 @@ def _device_profile(run):
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows) / 1e6
     rows.sort(key=lambda r: -r[1])
-    trace = os.path.join(ROOT, "build", "predict_trace.json")
+    trace = os.path.join(ROOT, "build", trace_name)
     os.makedirs(os.path.dirname(trace), exist_ok=True)
     prof.export_chrome_trace(trace)
     return {"wall_s": wall, "device_kernel_s": busy if rows else None,
@@ -714,21 +786,26 @@ def _device_profile(run):
 
 
 def phase_predict(name, models, batch, inputs, *, fused=False,
-                  fold5drop=False, reps=3):
-    """predict_shapes on the headline batch under bench.py's config, with
-    the injected random inputs `inputs` = (x0s, sels), so that runs
-    compare label for label. Launches from the first run; shapes/s the
-    median of `reps` more, each ended by a synchronize."""
+                  fold5drop=False, reps=3, cfg=None, ref=None, tol=None,
+                  trace="predict_trace.json"):
+    """predict_shapes on `batch` under bench.py's config (cfg: that config
+    at the batch's cloud size), with the injected random inputs `inputs` =
+    (x0s, sels), so that runs compare label for label. Launches, peak
+    memory and metrics from the first run (held to ref within tol, by
+    default the JAX numbers of the 10k clouds); shapes/s the median of
+    `reps` more, each ended by a synchronize; then, on the index route
+    without fold5drop, one profiled run."""
     import numpy as np
     import torch
     from sednet_tpu_torch.predict import (make_forward,
                                           make_tta_type_log_prob,
                                           predict_shapes)
 
-    cfg = predict_cfg(fused_encoder=fused)
+    cfg = cfg or predict_cfg(fused_encoder=fused)
     tta = make_tta_type_log_prob(models["type"], cfg, False, fold5drop)
     fwd = make_forward(models["inst"], fused=fused)
     x0s, sels = inputs
+    b, n = batch["points"].shape[:2]
 
     def run():
         return predict_shapes(models["type"], models["inst"], batch, cfg,
@@ -741,20 +818,22 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
     torch.cuda.synchronize()
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    need = ("K1", "K2b", "K3") + (("K4",) if fused else ())
+    # the type model keeps the index route (K6) even with the fused encoder
+    need = ("K1", "K2b", "K3", "K6") + (("K4",) if fused else ())
     for key in need:
         if counts[key] <= 0:
             raise AssertionError(f"{name} launched {key} no time")
     labels = np.stack([r["cluster_ids"] for r in res])
-    if labels.shape != (BATCH, N_POINTS) or labels.min() < 0:
+    if labels.shape != (b, n) or labels.min() < 0:
         raise AssertionError(f"{name}: bad labels {labels.shape}")
     got = {m: float(np.mean([r[m] for r in res]))
            for m in ("inst_iou", "type_iou", "inst_recall")}
     if not all(np.isfinite(v) for v in got.values()):
         raise AssertionError(f"{name}: metrics not finite {got}")
-    ref, tol = dict(REF_PREDICT_MEAN), PREDICT_TOL
-    if fold5drop:  # the votes change types only (JAX: same inst numbers)
-        ref["type_iou"] = float(np.mean(REF_PREDICT_FOLD5["type_iou"]))
+    if ref is None:
+        ref, tol = dict(REF_PREDICT_MEAN), PREDICT_TOL
+        if fold5drop:  # the votes change types only (JAX: same inst numbers)
+            ref["type_iou"] = float(np.mean(REF_PREDICT_FOLD5["type_iou"]))
     ok = all(abs(got[m] - ref[m]) <= tol[m] for m in got)
     ts = []
     for _ in range(reps):
@@ -763,9 +842,14 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
         torch.cuda.synchronize()
         ts.append(time.time() - t0)
     med = float(np.median(ts))
-    if not fold5drop:
-        profile = _device_profile(run)
-    rec = {"phase": name, "ok": ok, "shapes_per_s": BATCH / med,
+    # one profiled run of the index route (the fused route's stages read
+    # the same but for inst_forward; a profile costs 12-30 s of tracing)
+    profiled = not (fused or fold5drop)
+    if profiled:
+        profile = _device_profile(run, trace)
+    x = torch.from_numpy(np.concatenate([batch["points"], batch["normals"]],
+                                        -1)).to(DEVICE)
+    rec = {"phase": name, "ok": ok, "shapes_per_s": b / med,
            "batch_s_median": med, "batch_s_min": min(ts),
            "batch_s_max": max(ts), "timing": f"median of {reps} synced batches",
            **got, "ref": ref, "tol": tol,
@@ -773,10 +857,9 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
                           r["num_clusters"]] for r in res],
            "guard_capped": sum(r["guard_capped"] for r in res),
            "launches": counts, "peak_mem_gib": peak_gib,
-           **({} if fold5drop else {"profile": profile}),
-           "forward_peak_gib": _forward_peak_gib(fwd, torch.from_numpy(
-               np.concatenate([batch["points"], batch["normals"]], -1)).to(
-                   DEVICE))}
+           **({"profile": profile} if profiled else {}),
+           **(_forward_peaks(fwd, x) if not fused else
+              {"forward_peak_gib": _forward_peak_gib(fwd, x)})}
     return rec, labels, fwd
 
 
@@ -820,6 +903,265 @@ def phase_predict_all(models, shapes):
     return {name: v[0] for name, v in out.items()}
 
 
+def check_gather_reduce(name, a, idx):
+    """K6 against gather_reduce_plain on the same table and graph: the max
+    exact (the same elements), the sum and the sum of squares within
+    1e-5 * K * max|a| (and max|a|^2), the reassociation bound of K terms
+    summed in k order against torch's order."""
+    import torch
+    from sednet_tpu_torch.ops.graph import gather_reduce, gather_reduce_plain
+
+    s, sq, mx = gather_reduce(a, idx)
+    ps, psq, pmx = gather_reduce_plain(a, idx)
+    torch.cuda.synchronize()
+    b, n, c = a.shape
+    k = idx.shape[-1]
+    amax = float(a.abs().max())
+    errs = {"mx_err": float((mx - pmx).abs().max()),
+            "sum_err": float((s - ps).abs().max()),
+            "sq_err": float((sq - psq).abs().max())}
+    tol = {"sum_tol": 1e-5 * k * amax, "sq_tol": 1e-5 * k * amax * amax}
+    if (errs["mx_err"] != 0.0 or errs["sum_err"] > tol["sum_tol"]
+            or errs["sq_err"] > tol["sq_tol"]):
+        raise AssertionError(f"K6 {name}: {errs} {tol}")
+    # add, square, add, max per gathered value; each input read once (the
+    # table, the int64 graph), each output written once
+    bms, by = bound_ms(4 * b * n * k * c,
+                       4 * a.numel() + 8 * idx.numel() + 3 * 4 * b * n * c)
+    return {"case": name, "shape": [b, n, k, c], **errs, **tol,
+            "max_abs_err": max(errs.values()),
+            "ms": time_ms(lambda: gather_reduce(a, idx)),
+            "plain_ms": time_ms(lambda: gather_reduce_plain(a, idx), reps=5),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def _sparse_operator(xyz, nrm):
+    """The farthest-50 graph of one cloud as the matrix-free solver builds
+    it: (idx, coef, sorted layout (src, coef, dest, ends))."""
+    from sednet_tpu_torch.cluster.spectral import (_sorted_transpose_layout,
+                                                   normal_affinity_sparse)
+
+    idx, w, rsq = normal_affinity_sparse(xyz, nrm,
+                                         k=predict_cfg().spectral_knn)
+    coef = w * rsq[idx] * rsq[:, None]
+    return idx, coef, _sorted_transpose_layout(idx, coef)
+
+
+def check_segsum(m, idx, coef, layout, gen):
+    """K5 on the sorted layout of one cloud's graph at block width m, on
+    the entries of a random (N, m) block as the "pallas" matvec builds them:
+    against its plain version (the segmented scan) within 1e-5 of each
+    segment's sum of |entries| (both add pairwise, in other orders),
+    against index_add_ of the same entries (atomic adds in any order, up to
+    thousands a destination) within 1e-4 of it; bit-identical across two
+    launches; exactly 0 at every empty destination."""
+    import torch
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+
+    src_s, coef_s, dest_s, ends_s = layout
+    n = idx.shape[0]
+    v = torch.randn((n, m), generator=gen).to(DEVICE)
+    vals_t = (coef_s[None, :] * torch.index_select(v.T.contiguous(), 1,
+                                                   src_s)).contiguous()
+    got = ck.segsum_sorted_scan(vals_t, dest_s, ends_s)
+    again = ck.segsum_sorted_scan(vals_t, dest_s, ends_s)
+    want = ck.segsum_sorted_scan_plain(vals_t, dest_s, ends_s)
+    scale = ck.segsum_sorted_scan_plain(vals_t.abs(), dest_s, ends_s)
+    scatter = torch.zeros_like(v).index_add_(
+        0, idx.reshape(-1), (coef[..., None] * v[:, None, :]).reshape(-1, m))
+    counts = torch.bincount(idx.reshape(-1), minlength=n)
+    torch.cuda.synchronize()
+    rel = {name: float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+           for name, ref in (("plain", want), ("scatter", scatter))}
+    identical = torch.equal(got, again)
+    empty_zero = bool((got[counts == 0] == 0).all())
+    if not (identical and empty_zero and rel["plain"] <= 1e-5
+            and rel["scatter"] <= 1e-4):
+        raise AssertionError(f"K5 m={m}: rel {rel}, identical {identical}, "
+                             f"empty destinations zero {empty_zero}")
+    e = vals_t.shape[1]
+    vals_e = vals_t.T.contiguous()   # segment_reduce sums along axis 0
+    lib = torch.segment_reduce(vals_e, "sum", lengths=counts, axis=0)
+    bms, by = bound_ms(m * e, 4 * (m * e + e + n + n * m))
+    return {"case": f"farthest-50 graph of a {n}-point cloud, m={m}",
+            "shape": [m, e, n],
+            "nonempty_destinations": int((counts > 0).sum()),
+            "max_in_degree": int(counts.max()),
+            "rel_err_vs_plain": rel["plain"],
+            "rel_err_vs_scatter": rel["scatter"], "tol_plain": 1e-5,
+            "tol_scatter": 1e-4, "bit_identical": identical,
+            "empty_zero": empty_zero,
+            "max_abs_err": float((got - want).abs().max()),
+            "library_rel_err": float(((lib - want).abs()
+                                      / scale.clamp_min(1e-30)).max()),
+            "ms": time_ms(lambda: ck.segsum_sorted_scan(vals_t, dest_s,
+                                                        ends_s)),
+            "plain_ms": time_ms(lambda: ck.segsum_sorted_scan_plain(
+                vals_t, dest_s, ends_s), reps=5),
+            "library_ms": time_ms(lambda: torch.segment_reduce(
+                vals_e, "sum", lengths=counts, axis=0)),
+            "library": "torch.segment_reduce on the (E, m) layout",
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_kernels_slice3(models, x, big_x):
+    """K6 at the encoder's three layers (the signed table a * sign(scale)
+    that edge_conv_factored gives it, on K1's graph of the layer input) and
+    K5 on one 32768-point cloud's farthest-50 graph at m = 12 and 36."""
+    import torch
+    from sednet_tpu_torch.ops.flash_topk import flash_topk
+
+    k6 = [check_gather_reduce(name, a, flash_topk(g, g, K, metric=metric))
+          for name, g, a, metric in _fused_layer_inputs(models["inst"], x)]
+    idx, coef, layout = _sparse_operator(big_x[0, :, :3].contiguous(),
+                                         big_x[0, :, 3:6].contiguous())
+    gen = torch.Generator().manual_seed(6)
+    out = {"K5": [check_segsum(m, idx, coef, layout, gen) for m in (12, 36)],
+           "K6": k6}
+    emit({"phase": "kernels_slice3", "ok": True, "results": out})
+    return out
+
+
+def big_cfg():
+    from sednet_tpu_torch.config import Config
+
+    return Config(**{**PREDICT_KW, "num_points": BIG_POINTS})
+
+
+def _metrics(shapes, labels, types):
+    import numpy as np
+    from sednet_tpu_torch.metrics import siou_matched_segments_usecd_batch
+
+    mets = siou_matched_segments_usecd_batch(
+        [s["labels"].astype(np.int64) for s in shapes], list(labels),
+        list(types), [s["prim"].astype(np.int64) for s in shapes],
+        [s["points"] for s in shapes], device=DEVICE)
+    return {"inst_iou": float(np.mean([r[0] for r in mets])),
+            "type_iou": float(np.mean([r[1] for r in mets])),
+            "inst_recall": float(np.mean([r[4] for r in mets]))}
+
+
+def phase_spectral_matfree(models, shapes, x, inputs):
+    """The matrix-free solver in each A^T v layout on the large clouds, then
+    the "pallas" (K5) enrichment through cluster_batch and the metrics.
+    Eigenvectors are not held across layouts: the farthest quirk's are
+    localised, and the row normalisation turns last-ulp differences into
+    noise (tests/test_cluster.py:226-235); the operator and the downstream
+    result are held instead."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.cluster import cluster_batch
+    from sednet_tpu_torch.cluster.spectral import (TRANSPOSE_MODES,
+                                                   _default_vocab_cap,
+                                                   hpnet_enrich,
+                                                   matfree_matvec,
+                                                   normal_affinity_sparse,
+                                                   spectral_eigvecs_matfree)
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+    from sednet_tpu_torch.predict import (cluster_settings,
+                                          make_first_layer_idx, make_forward)
+
+    cfg = big_cfg()
+    x0s, sels = inputs
+    b, n = x.shape[:2]
+    xyz, nrm = x[..., :3].contiguous(), x[..., 3:6].contiguous()
+    solves = {}
+    for mode in TRANSPOSE_MODES:
+        secs, k5 = [], []
+        for i in range(b):
+            torch.cuda.synchronize()
+            before = ck.segsum_sorted_scan.launches
+            t0 = time.time()
+            v = spectral_eigvecs_matfree(xyz[i], nrm[i], x0s[i],
+                                         transpose_mode=mode)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            k5.append(ck.segsum_sorted_scan.launches - before)
+            dev = float((torch.linalg.vector_norm(v, dim=1) - 1).abs().max())
+            if not bool(torch.isfinite(v).all()) or dev > 1e-4:
+                raise AssertionError(f"{mode}: rows not finite and unit "
+                                     f"({dev})")
+        solves[mode] = {"solve_s": secs, "k5_launches_per_solve": k5}
+    if min(solves["pallas"]["k5_launches_per_solve"]) <= 0:
+        raise AssertionError("the pallas layout launched K5 no time")
+
+    # each layout's operator on one random (N, 36) block against the
+    # scatter layout's, relative to |A| |v| (the same operator on |v|:
+    # every coefficient is >= 0); atomic and pairwise sums of up to
+    # thousands of terms stay within 1e-4 of it, a wrong layout does not
+    gen = torch.Generator().manual_seed(7)
+    block = torch.randn((n, 36), generator=gen).to(DEVICE)
+    ops = {mode: matfree_matvec(xyz[0], nrm[0], transpose_mode=mode)
+           for mode in TRANSPOSE_MODES}
+    ref = ops["scatter"](block)
+    scale = ops["scatter"](block.abs()).clamp_min(1e-30)
+    matvec_err = {mode: float(((op(block) - ref).abs() / scale).max())
+                  for mode, op in ops.items()}
+    del ops
+    if max(matvec_err.values()) > 1e-4:
+        raise AssertionError(f"matvec layouts disagree: {matvec_err}")
+    n_unique = [int(torch.unique(normal_affinity_sparse(
+        xyz[i], nrm[i], k=cfg.spectral_knn)[0]).numel()) for i in range(b)]
+
+    # the "pallas" enrichment downstream, as predict_shapes runs it
+    with torch.no_grad():
+        idx1 = make_first_layer_idx(cfg)(x)
+        type_lp = models["type"](x, idx1).type_log_prob
+        _, emb, _ = make_forward(models["inst"])(x, idx1)
+    torch.cuda.synchronize()
+    reset_counts()
+    emb_n = torch.stack([hpnet_enrich(
+        emb[i], xyz[i], nrm[i], x0=x0s[i], normal_smooth_w=cfg.normal_smooth_w,
+        sigma=cfg.spectral_sigma, knn=cfg.spectral_knn,
+        eig_k=cfg.spectral_eigvecs, transpose_mode="pallas")
+        for i in range(b)])
+    labels, nums, _ = cluster_batch(emb_n.contiguous(), sels=sels,
+                                    **cluster_settings(cfg, n))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["K5"] <= 0:
+        raise AssertionError("the pallas enrichment launched K5 no time")
+    got = _metrics(shapes, labels.cpu().numpy(),
+                   type_lp.argmax(-1).cpu().numpy())
+    ok = all(abs(got[m] - REF_BIG_MEAN[m]) <= BIG_TOL[m] for m in got)
+    emit({"phase": "spectral_matfree", "ok": ok, "solves": solves,
+          "matvec_rel_err_vs_scatter": matvec_err, "matvec_tol": 1e-4,
+          "vocab": {"distinct_targets": n_unique,
+                    "cap": _default_vocab_cap(n)},
+          "pallas_enrichment": {**got, "num_clusters": nums.tolist(),
+                                "launches": counts},
+          "ref": REF_BIG_MEAN, "tol": BIG_TOL})
+    if not ok:
+        raise AssertionError(f"pallas enrichment metrics {got} not within "
+                             f"{BIG_TOL} of {REF_BIG_MEAN}")
+    return counts
+
+
+def phase_predict_bigcloud(models, shapes, inputs):
+    """predict_shapes on the 2 large clouds at N = 32768: the auto policy
+    takes the matrix-free solver ("scatter"), as the JAX package does."""
+    import numpy as np
+
+    batch = {k: np.stack([s[k] for s in shapes])
+             for k in ("points", "normals", "labels", "prim")}
+    cfg = big_cfg()
+    if batch["points"].shape[1] <= cfg.spectral_dense_max_n:
+        raise AssertionError("predict_bigcloud: the clouds fit the dense "
+                             "affinity; the matrix-free path would not run")
+    rec, _, _ = phase_predict("predict_bigcloud", models, batch, inputs,
+                              reps=2, cfg=cfg, ref=REF_BIG_MEAN,
+                              tol=BIG_TOL, trace="predict_bigcloud_trace.json")
+    rec["peak_mem_limit_gib"] = BIG_MEM_GIB
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"predict_bigcloud: metrics out of tolerance "
+                             f"{rec}")
+    if rec["peak_mem_gib"] >= BIG_MEM_GIB:
+        raise AssertionError(f"predict_bigcloud peak {rec['peak_mem_gib']} "
+                             f"GiB >= {BIG_MEM_GIB}")
+    return rec
+
+
 KERNELS = {
     "K1": ("flash_topk", "sednet_tpu_torch/csrc/flash_topk.cu",
            "sednet_tpu/ops/flash_topk.py:259"),
@@ -831,6 +1173,10 @@ KERNELS = {
            "sednet_tpu/ops/pallas_kernels.py:184"),
     "K4": ("fused_edge_reductions", "sednet_tpu_torch/csrc/fused_edgeconv.cu",
            "sednet_tpu/ops/fused_edgeconv.py:204"),
+    "K5": ("segsum_sorted_scan", "sednet_tpu_torch/csrc/segsum.cu",
+           "sednet_tpu/ops/pallas_kernels.py:329"),
+    "K6": ("gather_reduce", "sednet_tpu_torch/csrc/gather_reduce.cu",
+           "scripts/probe_gather_pallas.py:82"),
 }
 
 
@@ -862,17 +1208,34 @@ def main():
     phase_cluster_batch(emb)
     for key, cases in phase_kernels_slice2(models, x).items():
         timings.setdefault(key, []).extend(cases)
+    big_shapes, big_np = headline_shapes(BIG_BATCH, BIG_POINTS)
+    big_x = torch.from_numpy(big_np).to(DEVICE)
+    for key, cases in phase_kernels_slice3(models, x, big_x).items():
+        timings.setdefault(key, []).extend(cases)
     pred = phase_predict_all(models, shapes)
+    gen = torch.Generator().manual_seed(8)
+    big_inputs = ([torch.randn((BIG_POINTS, 12), generator=gen)
+                   for _ in range(BIG_BATCH)],
+                  [torch.randperm(BIG_POINTS, generator=gen)[:5000]
+                   for _ in range(BIG_BATCH)])
+    matfree_counts = phase_spectral_matfree(models, big_shapes, big_x,
+                                            big_inputs)
+    phase_predict_bigcloud(models, big_shapes, big_inputs)
     # each kernel's launches from the path of this smoke that runs it:
-    # K2b from the reference-default eval, K4 from its fused form
+    # K2b and K6 from the reference-default eval, K4 from its fused form,
+    # K5 from the "pallas" enrichment of the large clouds
     counts["K2b"] = pred["predict"]["launches"]["K2b"]
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
+    counts["K5"] = matfree_counts["K5"]
+    counts["K6"] = pred["predict"]["launches"]["K6"]
 
     summary = []
     for key, (name, source, replaces) in KERNELS.items():
         cases = timings[key]
-        # K1 and K4: the layer-2 case; K2b: the enriched E=140 case
-        main_case = cases[1] if key in ("K1", "K2b", "K4") else cases[0]
+        # K1, K4 and K6: the layer-2 case; K2b: the enriched E=140 case;
+        # K5: m = 36, the block of LOBPCG's Rayleigh-Ritz matvec
+        main_case = (cases[1] if key in ("K1", "K2b", "K4", "K5", "K6")
+                     else cases[0])
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[key],
@@ -882,6 +1245,7 @@ def main():
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "case": main_case["case"], "parity": "ok"})
+    emit({"phase": "done", "seconds": time.time() - T_START})
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

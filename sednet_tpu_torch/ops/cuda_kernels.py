@@ -1,4 +1,5 @@
-"""Mean-shift step (kernels K2/K2b) and NMS column-max (kernel K3).
+"""Mean-shift step (kernels K2/K2b), NMS column-max (kernel K3) and the
+sorted segment sum (kernel K5).
 
 Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
 
@@ -7,13 +8,17 @@ Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
     axis (`csrc/mean_shift.cu`) serves both; each wrapper counts its own
     launches.
   * `colmax` -- `colmax_pallas` (`csrc/colmax.cu`).
+  * `segsum_sorted_scan` -- `segsum_sorted_scan_pallas` (`csrc/segsum.cu`):
+    per-destination sums of entries sorted by destination, the A^T v of the
+    matrix-free spectral solver (`cluster/spectral.py`).
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 beside it. The kernels are compiled for row widths that are multiples of 32
 up to 256, as the TPU kernels take any width; other widths are padded with
 zero columns up to the next multiple of 32 (the 140-d HPNet-enriched
 embedding runs at 160), which change neither a dot product nor a norm.
-A loop of steps pads once (`kernel_width`) so that no step copies.
+A loop of steps pads once (`kernel_width`) so that no step copies. K5 takes
+any row count.
 """
 from __future__ import annotations
 
@@ -145,3 +150,57 @@ def colmax(rows, cols, bias, thresh: float, gain: float):
 
 
 colmax.launches = 0
+
+
+def segsum_sorted_scan_plain(vals_t, dest, ends):
+    """Plain PyTorch version of K5, the segmented inclusive scan of
+    `sednet_tpu/cluster/spectral.py:_segment_sum_sorted_scan`: ceil(log2 E)
+    passes in which entry e adds entry e - s when both have the same
+    destination (s = 1, 2, 4, ...), so every partial is a plain pairwise
+    add; the last entry of each segment then holds its sum, read at
+    ends - 1. Empty destinations give exactly 0.
+
+    vals_t (m, E) float32; dest (E,) ascending; ends (N,) cumulative
+    counts. Returns (N, m)."""
+    e = vals_t.shape[1]
+    vals = vals_t.clone()
+    s = 1
+    while s < e:
+        same = (dest[s:] == dest[:-s])[None, :]
+        vals[:, s:] = vals[:, s:] + torch.where(same, vals[:, :-s], 0.0)
+        s *= 2
+    ends = ends.long()
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    last = vals[:, torch.clamp(ends - 1, 0, max(e - 1, 0))]
+    return torch.where((ends > starts)[None, :], last, 0.0).T
+
+
+def segsum_sorted_scan(vals_t, dest, ends):
+    """K5 (`segsum_sorted_scan_pallas`): for each destination d the sum of
+    the columns [ends[d-1], ends[d]) of vals_t (m, E), entries sorted by
+    destination `dest` (E,); ends (N,) the cumulative counts
+    (`cluster.spectral._sorted_transpose_layout`). Returns (N, m) float32,
+    0 for empty destinations. On CUDA, vals_t must be contiguous float32
+    and ends int32; the kernel reads the segment bounds from ends alone and
+    is deterministic (no atomics)."""
+    if vals_t.device.type == "cpu":
+        return segsum_sorted_scan_plain(vals_t, dest, ends)
+    _build.require_cuda_f32("segsum_sorted_scan vals_t", vals_t)
+    if vals_t.dim() != 2 or dest.shape != vals_t.shape[1:]:
+        raise ValueError("segsum_sorted_scan: vals_t (m, E), dest (E,)")
+    if (ends.dim() != 1 or ends.dtype != torch.int32
+            or ends.device != vals_t.device or not ends.is_contiguous()):
+        raise ValueError("segsum_sorted_scan: ends must be a contiguous "
+                         "(N,) int32 tensor on vals_t's device")
+    m, e = vals_t.shape
+    n = ends.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=vals_t.device)
+    err = _build.lib().sednet_segsum_sorted(
+        vals_t.data_ptr(), ends.data_ptr(), m, e, n, out.data_ptr(),
+        _build.stream_of(vals_t))
+    _build.check(err, "segsum_sorted_scan")
+    segsum_sorted_scan.launches += 1
+    return out
+
+
+segsum_sorted_scan.launches = 0

@@ -1,11 +1,18 @@
 """Edge convolution of the DGCNN encoder, factored through the gather.
 
-Counterpart of `sednet_tpu/ops/graph.py:17-39,74-141`, in plain PyTorch.
+Counterpart of `sednet_tpu/ops/graph.py:17-39,74-141`. The gather and its
+three reductions over the neighbours are kernel K6 (`gather_reduce`,
+`csrc/gather_reduce.cu`, the counterpart of the TPU probe kernel
+`scripts/probe_gather_pallas.py:_call`): a CUDA tensor launches it, a CPU
+tensor takes `gather_reduce_plain`. Forward only: the kernel has no
+backward yet.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from sednet_tpu_torch.ops import _build
 
 
 def gather_neighbors(x, idx):
@@ -17,6 +24,56 @@ def gather_neighbors(x, idx):
     off = (torch.arange(b, device=x.device, dtype=idx.dtype) * n)[:, None, None]
     flat = x.reshape(b * n, c)[(idx + off).reshape(-1)]
     return flat.reshape(*idx.shape, c)
+
+
+def gather_reduce_plain(a, idx):
+    """Plain PyTorch version of K6: a (B, N, C), idx (B, N, K) ->
+    (sum, sum of squares, max) over the K gathered rows, each (B, N, C),
+    through the materialised (B, N, K, C) gather (indices clamped into
+    [0, N) as in `gather_neighbors`)."""
+    g = gather_neighbors(a, idx)
+    return g.sum(2), (g * g).sum(2), g.amax(2)
+
+
+def _gather_reduce_launch(a, idx):
+    _build.require_cuda_f32("gather_reduce a", a)
+    if a.dim() != 3 or idx.dim() != 3 or idx.shape[:2] != a.shape[:2]:
+        raise ValueError("gather_reduce: a (B, N, C) and idx (B, N, K)")
+    if idx.device != a.device or idx.dtype != torch.int64:
+        raise ValueError("gather_reduce: idx must be int64 on a's device")
+    b, n, c = a.shape
+    k = idx.shape[2]
+    if not 1 <= k <= 128:
+        raise ValueError(f"gather_reduce: K={k} outside [1, 128]")
+    ap = _build.pad_width(a)
+    if ap.data_ptr() % 16:
+        raise ValueError("gather_reduce: a must be 16-byte aligned")
+    cp = ap.shape[-1]
+    idx = idx.contiguous()
+    s, sq, mx = (torch.empty((b, n, cp), dtype=torch.float32, device=a.device)
+                 for _ in range(3))
+    err = _build.lib().sednet_gather_reduce(
+        ap.data_ptr(), idx.data_ptr(), b, n, cp, k, s.data_ptr(),
+        sq.data_ptr(), mx.data_ptr(), _build.stream_of(a))
+    _build.check(err, "gather_reduce")
+    gather_reduce.launches += 1
+    if cp != c:
+        s, sq, mx = s[..., :c], sq[..., :c], mx[..., :c]
+    return s, sq, mx
+
+
+def gather_reduce(a, idx):
+    """K6: the sum, sum of squares and max of a's rows over each row's
+    neighbours, a (B, N, C) float32, idx (B, N, K) int64 (out-of-range
+    entries clamp within their shape). Returns three (B, N, C). On CUDA, a
+    must be contiguous, C <= 256 (padded to a multiple of 32) and K <= 128;
+    the sums run over k in ascending order."""
+    if a.device.type == "cpu":
+        return gather_reduce_plain(a, idx)
+    return _gather_reduce_launch(a, idx)
+
+
+gather_reduce.launches = 0
 
 
 def edge_conv_factored(x, idx, weight, scale, bias, *, groups: int,
@@ -42,11 +99,9 @@ def edge_conv_factored(x, idx, weight, scale, bias, *, groups: int,
     bb = F.linear(x, weight[:, c_in:] - w_top)
     sign = torch.where(scale >= 0, 1.0, -1.0)
 
-    g = gather_neighbors(a * sign, idx)               # (B, N, K, C)
-    s = g.sum(2) * sign
-    sq = (g * g).sum(2)
-    ext = g.amax(2) * sign
-    del g
+    s, sq, ext = gather_reduce((a * sign).contiguous(), idx)
+    s = s * sign
+    ext = ext * sign
 
     b, n, c = a.shape
     k = idx.shape[2]

@@ -30,11 +30,11 @@ import torch
 from torch.profiler import record_function
 
 from sednet_tpu_torch.cluster.mean_shift import cluster_batch, guard_mean_shift
-from sednet_tpu_torch.cluster.spectral import (MATFREE_TODO,
-                                               _entropy_weighted_concat,
+from sednet_tpu_torch.cluster.spectral import (_entropy_weighted_concat,
                                                compute_entropy,
+                                               matfree_matvec,
                                                normal_affinity_topk,
-                                               spectral_eigvecs)
+                                               top_eigvecs)
 from sednet_tpu_torch.config import Config
 from sednet_tpu_torch.data import (EVAL_STREAM_SEED, make_synthetic_shape,
                                    normalize_points, pca_align)
@@ -227,10 +227,12 @@ def spectral_embed(xyz, normals, cfg: Config, shape_id=None,
                    cache: SpectralCache | None = None, x0=None,
                    generator=None):
     """One shape's eigenvectors (N, spectral_eigvecs) and their entropy,
-    from the cache when it has them. The dense affinity serves up to
-    cfg.spectral_dense_max_n points; beyond it, or with
-    cfg.spectral_matfree, this raises (the matrix-free path is not
-    ported) rather than build an N x N matrix the JAX package would not."""
+    from the cache when it has them. cfg.spectral_matfree None is the JAX
+    package's auto policy: the dense affinity up to
+    cfg.spectral_dense_max_n points, the matrix-free operator
+    (`matfree_matvec`, transpose_mode "scatter") beyond. The `affinity`
+    range holds the affinity (and the matrix-free layout), `lobpcg` the
+    solve, on either path."""
     if cache is not None and shape_id is not None:
         cached = cache.get(shape_id, xyz.device)
         if cached is not None:
@@ -238,14 +240,17 @@ def spectral_embed(xyz, normals, cfg: Config, shape_id=None,
     matfree = cfg.spectral_matfree
     if matfree is None:
         matfree = xyz.shape[0] > cfg.spectral_dense_max_n
-    if matfree:
-        raise NotImplementedError(MATFREE_TODO)
     with record_function("predict_shapes/affinity"):
-        aff = normal_affinity_topk(xyz, normals, sigma=cfg.spectral_sigma,
-                                   k=cfg.spectral_knn)
+        if matfree:
+            op = matfree_matvec(xyz, normals, sigma=cfg.spectral_sigma,
+                                knn=cfg.spectral_knn)
+        else:
+            op = normal_affinity_topk(xyz, normals, sigma=cfg.spectral_sigma,
+                                      k=cfg.spectral_knn)
     with record_function("predict_shapes/lobpcg"):
-        v = spectral_eigvecs(aff, x0, generator, k=cfg.spectral_eigvecs)
-    del aff
+        v = top_eigvecs(op, xyz.shape[0], xyz.device, x0, generator,
+                        k=cfg.spectral_eigvecs)
+    del op
     with record_function("predict_shapes/entropy_concat"):
         ent = compute_entropy(v)
     if cache is not None and shape_id is not None:

@@ -11,7 +11,10 @@ import torch
 
 from sednet_tpu_torch.ops import cuda_kernels as ck
 from sednet_tpu_torch.ops import fused_edgeconv as fe
-from sednet_tpu_torch.cluster import cluster_batch
+from sednet_tpu_torch.cluster import cluster_batch, guard_mean_shift
+from sednet_tpu_torch.cluster.spectral import hpnet_enrich
+from sednet_tpu_torch.data import make_synthetic_shape
+from sednet_tpu_torch.ops.graph import gather_reduce, gather_reduce_plain
 from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
                                              topk_plain)
 
@@ -187,3 +190,106 @@ def test_fused_edge_reductions_kernel_counts_every_tie(cuda):
     assert torch.equal(mx, pmx)
     torch.testing.assert_close(sm, psm, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(sq, psq, atol=1e-4, rtol=1e-5)
+
+
+# K6 against its plain version: int64 indices with out-of-range entries
+# (clamped within their shape), N = 2003 not a multiple of the 8 rows of a
+# block, K = 64 and a ragged K = 50. The max is of the same elements, so
+# exact; the sums add K terms in k order against torch's reduction order,
+# within 1e-5 * K * max|a| (and max|a|^2), the reassociation bound.
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(64, 64), (128, 64), (96, 50)])
+def test_gather_reduce_kernel_matches_plain(cuda, c, k):
+    rng = np.random.RandomState(9)
+    n = 2003
+    a = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(cuda)
+    idx = rng.randint(0, n, (2, n, k))
+    idx[0, :9, 0] = -5
+    idx[1, 4, :3] = n + 17
+    idx = torch.from_numpy(idx).to(cuda)
+    before = gather_reduce.launches
+    s, sq, mx = gather_reduce(a, idx)
+    torch.cuda.synchronize()
+    assert gather_reduce.launches == before + 1
+    ps, psq, pmx = gather_reduce_plain(a, idx)
+    amax = float(a.abs().max())
+    assert torch.equal(mx, pmx)
+    assert float((s - ps).abs().max()) <= 1e-5 * k * amax
+    assert float((sq - psq).abs().max()) <= 1e-5 * k * amax * amax
+
+
+def _segments(rng, n, skewed):
+    """Sorted destinations: skewed as the farthest quirk makes them (a few
+    destinations with thousands of entries, most empty) or uniform as a
+    nearest-k graph (about 50 at every destination)."""
+    if skewed:
+        parts = [rng.randint(0, n, 3000), np.full(7000, 3),
+                 np.full(4500, n - 2), np.full(5, 0),
+                 rng.randint(n // 2, n // 2 + 40, 2000)]
+    else:
+        parts = [np.repeat(np.arange(n), 50)[rng.rand(50 * n) < 0.98]]
+    dest = np.sort(np.concatenate(parts)).astype(np.int32)
+    counts = np.bincount(dest, minlength=n)
+    return dest, np.cumsum(counts).astype(np.int32), counts
+
+
+# K5 against its plain version (the segmented scan): every partial in both
+# is a pairwise add of the same entries in another order, so they agree
+# within 1e-5 of each segment's sum of |values| (values over six decades);
+# empty destinations are exactly 0, and two launches are bit-identical.
+@pytest.mark.cuda
+@pytest.mark.parametrize("skewed", [True, False])
+@pytest.mark.parametrize("m", [12, 36])
+def test_segsum_sorted_scan_kernel_matches_plain(cuda, skewed, m):
+    rng = np.random.RandomState(10)
+    n = 4000
+    dest, ends, counts = _segments(rng, n, skewed)
+    e = dest.shape[0]
+    vals = (rng.randn(m, e) * 10.0 ** rng.uniform(-3, 3, (1, e))).astype(
+        np.float32)
+    vt, dt, et = (torch.from_numpy(x).to(cuda) for x in (vals, dest, ends))
+    before = ck.segsum_sorted_scan.launches
+    got = ck.segsum_sorted_scan(vt, dt, et)
+    again = ck.segsum_sorted_scan(vt, dt, et)
+    torch.cuda.synchronize()
+    assert ck.segsum_sorted_scan.launches == before + 2
+    assert got.shape == (n, m) and torch.equal(got, again)
+    want = ck.segsum_sorted_scan_plain(vt, dt, et)
+    scale = ck.segsum_sorted_scan_plain(vt.abs(), dt, et)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    empty = torch.from_numpy(counts == 0).to(cuda)
+    assert bool(empty.any() == skewed) and bool((got[empty] == 0).all())
+
+
+# The matrix-free solver with K5 ("pallas") on the card against the same
+# on the CPU, at the level that is invariant to the localised eigenvectors'
+# rounding (tests/test_cluster.py:226-235): the enriched embedding's
+# partition, with the ground-truth number of segments, on the fixture of
+# tests/test_torch_port_matfree.py.
+@pytest.mark.cuda
+def test_matfree_pallas_on_card_gives_cpu_labels(cuda):
+    d = make_synthetic_shape(np.random.RandomState(5), n_points=256,
+                             n_segments=4)
+    lab = d["labels"].astype(np.int64)
+    oh = np.zeros((256, 8), np.float32)
+    oh[np.arange(256), lab] = 1.0
+    oh += 0.05 * np.random.RandomState(1).randn(*oh.shape)
+    oh /= np.linalg.norm(oh, axis=1, keepdims=True)
+    args = [torch.from_numpy(a.astype(np.float32))
+            for a in (oh, d["points"], d["normals"])]
+    x0 = torch.randn((256, 4), generator=torch.Generator().manual_seed(2))
+    sel = torch.randperm(256, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for dev in ("cpu", cuda):
+        before = ck.segsum_sorted_scan.launches
+        e = hpnet_enrich(*(a.to(dev) for a in args), x0=x0, knn=12, eig_k=4,
+                         transpose_mode="pallas")
+        launched = ck.segsum_sorted_scan.launches - before
+        # 1 + 2 per LOBPCG step on the card (one A^T v per matvec)
+        assert (launched == 0) if dev == "cpu" else (launched % 2 == 1)
+        res = guard_mean_shift(e, num_samples=256, quantile=0.015,
+                               iterations=30, sel=sel)
+        out[str(dev)] = (res.labels.cpu().numpy(), int(res.num_clusters))
+    (lc, nc), (lg, ng) = out["cpu"], out[str(cuda)]
+    assert nc == ng == len(np.unique(lab))
+    assert len(set(zip(lc.tolist(), lg.tolist()))) == nc

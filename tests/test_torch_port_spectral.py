@@ -19,7 +19,8 @@ from sednet_tpu_torch.cluster.lobpcg import lobpcg_standard
 from sednet_tpu_torch.cluster.spectral import (compute_entropy,
                                                hpnet_enrich_dense,
                                                hpnet_process,
-                                               normal_affinity_topk)
+                                               normal_affinity_topk,
+                                               spectral_eigvecs_matfree)
 from sednet_tpu_torch.config import Config
 from sednet_tpu_torch.predict import SpectralCache, spectral_embed
 
@@ -160,7 +161,11 @@ def test_spectral_embed_caches_and_refuses_matfree(tmp_path):
     v2, ent2 = spectral_embed(xyz, nrm, Config(), shape_id="s0",
                               cache=cache, x0=x0 + 1.0)
     assert torch.equal(v, v2) and torch.equal(ent, ent2)
+    # above the dense cap, or asked for, the matrix-free solver (default
+    # layout "scatter") from the same start block
+    want = spectral_eigvecs_matfree(xyz, nrm, x0)
     for cfg in (Config(spectral_dense_max_n=100),
                 Config(spectral_matfree=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            spectral_embed(xyz, nrm, cfg, x0=x0)
+        v3, ent3 = spectral_embed(xyz, nrm, cfg, x0=x0)
+        assert torch.equal(v3, want) and not torch.equal(v3, v)
+        assert torch.equal(ent3, compute_entropy(want))
