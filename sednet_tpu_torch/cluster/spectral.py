@@ -165,9 +165,10 @@ def _sorted_transpose_layout(idx, coef):
 def _segment_sum_sorted_scan(vals, dest, n: int, ends):
     """Segment sums of the rows of vals (E, m) grouped by sorted `dest`, by
     the segmented inclusive scan (ceil(log2 E) shift and masked-add passes,
-    no scatter, no cumsum difference): the plain version of K5
-    (`segsum_sorted_scan_plain`) on the transposed entries. Returns (n, m),
-    0 for empty destinations."""
+    no scatter, no cumsum difference): the JAX package's name and (E, m)
+    layout for K5's plain version (`segsum_sorted_scan_plain`), which the
+    "scan" matvec calls on the (m, E) entries directly. Returns (n, m), 0
+    for empty destinations."""
     return segsum_sorted_scan_plain(vals.T, dest, ends)
 
 
@@ -251,11 +252,11 @@ def matfree_matvec(xyz, normals, *, sigma: float = 0.1, knn: int = 50,
       "scatter"  index_add_ of the entries at their destinations;
       "sorted"   index_add_ on the entries sorted by destination
                  (`_sorted_transpose_layout`), XLA's segment_sum there;
-      "scan"     the sorted entries through the segmented scan
-                 (`_segment_sum_sorted_scan`);
-      "pallas"   kernel K5 (`segsum_sorted_scan`) on the transposed
-                 entries vals_t = coef_s * v.T[:, src_s] (m, E): the JAX
-                 name, which there means the Pallas kernel and here K5;
+      "scan"     the segmented scan (`segsum_sorted_scan_plain`) on the
+                 transposed sorted entries vals_t = coef_s * v.T[:, src_s]
+                 (m, E);
+      "pallas"   kernel K5 (`segsum_sorted_scan`) on the same vals_t: the
+                 JAX name, which there means the Pallas kernel and here K5;
       "vocab"    the compact-column slab (`_vocab_matvec`).
 
     "scatter" and "sorted" add through atomics on the card (last-ulp
@@ -272,15 +273,16 @@ def matfree_matvec(xyz, normals, *, sigma: float = 0.1, knn: int = 50,
         return _scatter_matvec(idx, coef)
     src_s, coef_s, dest_s, ends_s = _sorted_transpose_layout(idx, coef)
 
+    segsum = {"scan": segsum_sorted_scan_plain,
+              "pallas": segsum_sorted_scan}.get(transpose_mode)
+
     def transpose(v):
-        if transpose_mode == "pallas":
-            vals_t = coef_s[None, :] * torch.index_select(
-                v.T.contiguous(), 1, src_s)
-            return segsum_sorted_scan(vals_t.contiguous(), dest_s, ends_s)
-        vals = coef_s[:, None] * v[src_s]
         if transpose_mode == "sorted":
-            return torch.zeros_like(v).index_add_(0, dest_s, vals)
-        return _segment_sum_sorted_scan(vals, dest_s, n, ends_s)
+            return torch.zeros_like(v).index_add_(0, dest_s,
+                                                  coef_s[:, None] * v[src_s])
+        vals_t = coef_s[None, :] * torch.index_select(v.T.contiguous(), 1,
+                                                      src_s)
+        return segsum(vals_t, dest_s, ends_s)
 
     def matvec(v):
         av = (v[idx] * coef[..., None]).sum(1)

@@ -5,7 +5,7 @@ three reductions over the neighbours are kernel K6 (`gather_reduce`,
 `csrc/gather_reduce.cu`, the counterpart of the TPU probe kernel
 `scripts/probe_gather_pallas.py:_call`): a CUDA tensor launches it, a CPU
 tensor takes `gather_reduce_plain`. Forward only: the kernel has no
-backward yet.
+backward yet, and a backward through it raises.
 """
 from __future__ import annotations
 
@@ -62,14 +62,33 @@ def _gather_reduce_launch(a, idx):
     return s, sq, mx
 
 
+class _GatherReduce(torch.autograd.Function):
+    """K6's launch as an autograd node whose backward raises, so that a
+    gradient through the kernel fails loudly instead of losing the gather's
+    term (the backward scatter-add kernel is ROADMAP.md queue 1, training)."""
+
+    @staticmethod
+    def forward(ctx, a, idx):
+        return _gather_reduce_launch(a, idx)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "gather_reduce (K6) has no backward kernel yet: run the CUDA "
+            "forward under torch.no_grad(), or differentiate on the CPU")
+
+
 def gather_reduce(a, idx):
     """K6: the sum, sum of squares and max of a's rows over each row's
     neighbours, a (B, N, C) float32, idx (B, N, K) int64 (out-of-range
     entries clamp within their shape). Returns three (B, N, C). On CUDA, a
     must be contiguous, C <= 256 (padded to a multiple of 32) and K <= 128;
-    the sums run over k in ascending order."""
+    the sums run over k in ascending order. The CUDA path is forward only:
+    backpropagating through it raises NotImplementedError."""
     if a.device.type == "cpu":
         return gather_reduce_plain(a, idx)
+    if torch.is_grad_enabled() and a.requires_grad:
+        return _GatherReduce.apply(a, idx)
     return _gather_reduce_launch(a, idx)
 
 

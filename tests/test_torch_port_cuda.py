@@ -218,6 +218,25 @@ def test_gather_reduce_kernel_matches_plain(cuda, c, k):
     assert float((sq - psq).abs().max()) <= 1e-5 * k * amax * amax
 
 
+# K6 is forward only. With a table that requires grad, the forward still
+# launches the kernel and gives the same values, but a backward through it
+# raises instead of silently dropping the gather's term from the gradient.
+@pytest.mark.cuda
+def test_gather_reduce_kernel_backward_raises(cuda):
+    rng = np.random.RandomState(10)
+    a = torch.from_numpy(rng.randn(2, 300, 64).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, 300, (2, 300, 16))).to(cuda)
+    want = gather_reduce(a, idx)
+    a.requires_grad_(True)
+    before = gather_reduce.launches
+    got = gather_reduce(a, idx)
+    assert gather_reduce.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.requires_grad and torch.equal(g.detach(), w)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        sum(g.sum() for g in got).backward()
+
+
 def _segments(rng, n, skewed):
     """Sorted destinations: skewed as the farthest quirk makes them (a few
     destinations with thousands of entries, most empty) or uniform as a
