@@ -149,6 +149,7 @@ BIG_TOL = {m: max(0.03, max(v) - min(v)) for m, v in _KEY_MEANS_BIG.items()}
 MAX_SWAPPED = 0.01
 
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 BATCH, N_POINTS, K = 8, 10000, 64
@@ -176,6 +177,34 @@ def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def split_bound(dot_flops, f32_flops, nbytes):
+    """The bound of K2/K2b/K3, whose dot products run on the tensor cores
+    by the three-term TF32 split: the larger of three TF32 products for
+    each f32 one (3 x dot_flops over the dense TF32 peak) and the bytes
+    over the memory rate; beside it, as `bound_f32_ms`, the bound of the
+    same work on the f32 CUDA cores (f32_flops over 67 TFLOP/s), the bound
+    these kernels were measured against before."""
+    t_ops, t_bytes = 3 * dot_flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_f32_ms": bound_ms(f32_flops, nbytes)[0]}
+
+
+def f64_errors(name, got, plain, exact):
+    """The kernel's and the float32 plain version's max error against the
+    same function in float64 (-inf entries equal in all three count 0).
+    Raises unless the kernel errs at most twice as much as the plain
+    version, the sign that the split keeps float32 accuracy."""
+    def err(t):
+        return float((t.double() - exact).abs().nan_to_num(0.0).max())
+
+    out = {"f64_err": err(got), "plain_f64_err": err(plain)}
+    if out["f64_err"] > 2.0 * out["plain_f64_err"]:
+        raise AssertionError(f"{name}: float64 error {out} above twice the "
+                             "plain version's")
+    return out
 
 
 def time_ms(fn, reps=10, warmup=2):
@@ -349,14 +378,17 @@ def _check_wide(emb_e, bw):
     got_p = ck.mean_shift_step_batched(emb_p, emb_p, bw)
     got = got_p[..., :e]
     want = ck.mean_shift_step_plain(emb_e, emb_e, inv_b2)
+    exact = ck.mean_shift_step_plain(emb_e.double(), emb_e.double(),
+                                     inv_b2.double())
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if err > 1e-5 or float(got_p[..., e:].abs().sum()) != 0.0:
         raise AssertionError(f"K2b E={e}: max abs error {err} > 1e-5, or "
                              "padding columns not zero")
-    bms, by = bound_ms(b * n * n * (4 * e + 4), 4 * 3 * b * n * e)
+    ep = emb_p.shape[-1]
     k2b = {"case": f"enriched E={e}", "shape": [b, n, e],
-           "run_width": emb_p.shape[-1], "max_abs_err": err, "tol": 1e-5,
+           "run_width": ep, "max_abs_err": err, "tol": 1e-5,
+           **f64_errors(f"K2b E={e}", got, want, exact),
            "ms": time_ms(lambda: ck.mean_shift_step_batched(emb_p, emb_p, bw)),
            "plain_ms": time_ms(lambda: ck.mean_shift_step_plain(
                emb_e, emb_e, inv_b2), reps=3),
@@ -366,7 +398,9 @@ def _check_wide(emb_e, bw):
                F.scaled_dot_product_attention(
                    (emb_e * inv_b2[:, None, None])[:, None], emb_e[:, None],
                    emb_e[:, None], scale=1.0)[:, 0], dim=-1, eps=1e-12)),
-           "bound_ms": bms, "bound_by": by}
+           **split_bound(4 * b * n * n * e, b * n * n * (4 * e + 4),
+                         4 * 3 * b * n * e),
+           "bound_run_width_ms": 3e3 * 4 * b * n * n * ep / PEAK_TF32_FLOPS}
 
     rows, cols = emb_e[0], got[0].contiguous()
     rows_p, cols_p = emb_p[0], got_p[0]
@@ -374,21 +408,25 @@ def _check_wide(emb_e, bw):
     inf = float("inf")
     bk, ik = ck.colmax(rows_p, cols_p, zeros, inf, 1.0)
     bp, ip = ck.colmax_plain(rows, cols, zeros, inf, 1.0)
+    b64, _ = ck.colmax_plain(rows.double(), cols.double(), zeros.double(),
+                             inf, 1.0)
     torch.cuda.synchronize()
     err = float((bk - bp).abs().max())
     at = (rows * cols[ik.long()]).sum(-1)
     gap = float((bp - at).max())
     if err > 1e-5 or gap > 1e-5:
         raise AssertionError(f"K3 E={e}: value error {err}, index gap {gap}")
-    bms, by = bound_ms(n * n * (2 * e + 4), 4 * (2 * n * e + 3 * n))
     k3 = {"case": f"membership, enriched E={e}", "shape": [n, n, e],
-          "run_width": emb_p.shape[-1], "max_abs_err": err, "tol": 1e-5,
+          "run_width": ep, "max_abs_err": err, "tol": 1e-5,
+          **f64_errors(f"K3 E={e}", bk, bp, b64),
           "index_score_gap": gap, "indices_differ": int((ik != ip).sum()),
           "ms": time_ms(lambda: ck.colmax(rows_p, cols_p, zeros, inf, 1.0)),
           "plain_ms": time_ms(lambda: ck.colmax_plain(rows, cols, zeros, inf,
                                                       1.0)),
           "library_ms": time_ms(lambda: torch.max(rows @ cols.T, dim=1)),
-          "bound_ms": bms, "bound_by": by}
+          **split_bound(2 * n * n * e, n * n * (2 * e + 4),
+                        4 * (2 * n * e + 3 * n)),
+          "bound_run_width_ms": 3e3 * 2 * n * n * ep / PEAK_TF32_FLOPS}
     return k2b, k3
 
 
@@ -434,18 +472,22 @@ def phase_kernels(model, x, emb):
              lambda: ck.mean_shift_step_plain(emb, emb, inv_b2),
              lambda: sdpa(BATCH), BATCH)):
         got, want = fn(), plain()
+        e64 = emb[:b].double()
+        exact = ck.mean_shift_step_plain(e64, e64, inv_b2[:b].double())
+        exact = exact[0] if name == "K2" else exact
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if err > 1e-5:
             raise AssertionError(f"{name}: max abs error {err} > 1e-5")
         e = emb.shape[-1]
-        bms, by = bound_ms(b * N_POINTS * N_POINTS * (4 * e + 4),
-                           4 * 3 * b * N_POINTS * e)
         cases.append({"case": name, "shape": [b, N_POINTS, e],
                       "max_abs_err": err, "tol": 1e-5,
+                      **f64_errors(name, got, want, exact),
                       "ms": time_ms(fn), "plain_ms": time_ms(plain),
                       "library_ms": time_ms(lib),
-                      "bound_ms": bms, "bound_by": by})
+                      **split_bound(4 * b * N_POINTS * N_POINTS * e,
+                                    b * N_POINTS * N_POINTS * (4 * e + 4),
+                                    4 * 3 * b * N_POINTS * e)})
     # where the tol test (max movement <= 1e-6) would stop the shift loop
     # of shape 0, with the kernel's and with the plain version's rounding
     cases[0]["tol_exit"] = {
@@ -475,15 +517,16 @@ def phase_kernels(model, x, emb):
                                      ("assign", mask, inf, 1.0)):
         bk, ik = ck.colmax(rows, cols, bias, thresh, gain)
         bp, ip = ck.colmax_plain(rows, cols, bias, thresh, gain)
+        b64, _ = ck.colmax_plain(rows.double(), cols.double(), bias.double(),
+                                 thresh, gain)
         torch.cuda.synchronize()
         err = float((bk - bp).abs().nan_to_num(0.0).max())
         if err > 1e-5 or not torch.equal(ik, ip):
             raise AssertionError(f"K3 {name}: value error {err}, "
                                  f"{int((ik != ip).sum())} indices differ")
-        bms, by = bound_ms(N_POINTS * N_POINTS * (2 * 128 + 4),
-                           4 * (2 * N_POINTS * 128 + 3 * N_POINTS))
         k3.append({"case": name, "shape": [N_POINTS, N_POINTS, 128],
                    "max_abs_err": err, "tol": 1e-5, "indices_equal": True,
+                   **f64_errors(f"K3 {name}", bk, bp, b64),
                    "ms": time_ms(lambda: ck.colmax(rows, cols, bias, thresh,
                                                    gain)),
                    "plain_ms": time_ms(lambda: ck.colmax_plain(
@@ -491,7 +534,9 @@ def phase_kernels(model, x, emb):
                    "library_ms": time_ms(lambda: torch.max(
                        torch.addmm(bias, rows, cols.T), dim=1))
                    if gain == 1.0 and thresh == inf else None,
-                   "bound_ms": bms, "bound_by": by})
+                   **split_bound(2 * N_POINTS * N_POINTS * 128,
+                                 N_POINTS * N_POINTS * (2 * 128 + 4),
+                                 4 * (2 * N_POINTS * 128 + 3 * N_POINTS))})
     out["K3"] = k3
     emit({"phase": "kernels", "ok": True, "results": out})
     return out
@@ -1244,6 +1289,7 @@ def main():
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
+            "bound_f32_ms": main_case.get("bound_f32_ms"),
             "library_ms": main_case["library_ms"],
             "case": main_case["case"], "parity": "ok"})
     emit({"phase": "done", "seconds": time.time() - T_START})

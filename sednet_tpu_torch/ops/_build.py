@@ -4,7 +4,8 @@ The sources in `sednet_tpu_torch/csrc/` are compiled at first use for
 `sm_90a`, one nvcc process per source, all started together, then linked
 into one shared library with a plain C interface. The library lands in
 `build/sednet_tpu_torch/<hash>/` beside the package, keyed on a hash of the
-sources and flags, so an unchanged checkout builds once.
+files under `csrc/` (headers included) and the flags, so an unchanged
+checkout builds once.
 
 Every C entry point returns a `cudaError_t` (0 on success); `check` turns
 anything else into an exception.
@@ -55,10 +56,12 @@ def nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file under csrc/, the headers that
+    the sources include as well as the sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

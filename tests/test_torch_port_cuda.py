@@ -105,6 +105,92 @@ def test_colmax_kernel_matches_plain_on_ties(cuda):
         assert torch.equal(ik, ip)
 
 
+def _clustered(rng, b, n, e, spread=0.1):
+    """(b, n, e) unit rows around 8 centres a shape, neighbours about
+    `spread` apart, so that every bandwidth from 0.05 up weighs many
+    columns and not only a row's own."""
+    centres = _unit(rng, b, 8, e)
+    lab = rng.randint(0, 8, (b, n))
+    x = np.take_along_axis(centres, lab[..., None], 1)
+    x = x + (spread / np.sqrt(e)) * rng.randn(b, n, e)
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _ms_kernel(x, bw):
+    """K2 for one shape, K2b for a batch, as the main path calls them."""
+    if x.shape[0] == 1:
+        before = ck.mean_shift_step.launches
+        out = ck.mean_shift_step(x[0], x[0], bw[0])[None]
+        assert ck.mean_shift_step.launches == before + 1
+        return out
+    before = ck.mean_shift_step_batched.launches
+    out = ck.mean_shift_step_batched(x, x, bw)
+    assert ck.mean_shift_step_batched.launches == before + 1
+    return out
+
+
+# The tensor-core step (three-term TF32 split) at ragged N (one row, less
+# than one 64-row tile, not a multiple of the 32-column tile), at widths
+# that run as they are (32, 256) and padded (140 at 160), for one shape
+# (K2) and a batch (K2b), at the bandwidths of the path's range: 1e-5 abs.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("e", [32, 140, 256])
+@pytest.mark.parametrize("n", [1, 63, 3001])
+def test_mean_shift_kernel_ragged_widths_and_bandwidths(cuda, n, e, b):
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(_clustered(rng, b, n, e)).to(cuda)
+    for bw in (0.05, 0.15, 0.3):
+        bws = torch.full((b,), bw, device=cuda)
+        got = _ms_kernel(x, bws)
+        want = ck.mean_shift_step_plain(x, x, 1.0 / (bws * bws))
+        assert got.shape == x.shape
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# The split keeps float32 accuracy: against the same step in float64, the
+# kernel errs no more than twice as much as the float32 plain version
+# (cuBLAS in true f32) on the same inputs.
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw", [0.05, 0.15, 0.3])
+def test_mean_shift_kernel_keeps_float32_accuracy(cuda, bw):
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(_clustered(rng, 2, 3001, 140)).to(cuda)
+    bws = torch.full((2,), bw, device=cuda)
+    inv_b2 = 1.0 / (bws * bws)
+    exact = ck.mean_shift_step_plain(x.double(), x.double(), inv_b2.double())
+    got = ck.mean_shift_step_batched(x, x, bws)
+    plain = ck.mean_shift_step_plain(x, x, inv_b2)
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
+
+
+# K3's lowest-index rule on exact ties, where the row and column counts
+# differ and where the rows fill less than one 64-row tile; a cluster's
+# four blocks merge their partial maxima by the same rule.
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,c", [(37, 3001), (2999, 130), (1, 50)])
+def test_colmax_kernel_ties_ragged(cuda, r, c):
+    rng = np.random.RandomState(13)
+    rows, cols = _tie_heavy(rng, r, c, e=140, vocab=12)
+    rt, ct = torch.from_numpy(rows).to(cuda), torch.from_numpy(cols).to(cuda)
+    for thresh, gain, bias in (
+            (float("inf"), 1.0, np.zeros(c, np.float32)),
+            (0.8, 0.0, rng.randint(0, 4, c).astype(np.float32)),
+            (float("inf"), 1.0,
+             np.where(rng.rand(c) < 0.3, 0.0, -np.inf).astype(np.float32)),
+            (float("inf"), 1.0, np.full(c, -np.inf, np.float32))):
+        bt = torch.from_numpy(bias).to(cuda)
+        before = ck.colmax.launches
+        bk, ik = ck.colmax(rt, ct, bt, thresh, gain)
+        assert ck.colmax.launches == before + 1
+        bp, ip = ck.colmax_plain(rt, ct, bt, thresh, gain)
+        assert torch.equal(ik, ip)
+        assert torch.equal(torch.isinf(bk), torch.isinf(bp))
+        torch.testing.assert_close(bk, bp, atol=1e-5, rtol=0)
+
+
 # The HPNet-enriched clustering embedding is 128 + 12 = 140 wide: K2/K2b and
 # K3 run it zero-padded to 160, as any width up to 256.
 @pytest.mark.cuda

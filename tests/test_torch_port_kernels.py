@@ -198,3 +198,78 @@ def test_kernel_width_pads_only_for_the_card():
     # loops pad a CUDA tensor once (see test_torch_port_cuda.py)
     x = torch.ones(2, 8, 140)
     assert ck.kernel_width(x) is x
+
+
+def _tf32(a):
+    """a rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as the card's cvt.rna.tf32.f32 does: add half of the 13 dropped
+    bits' range to the magnitude, then clear them."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b, terms=3):
+    """a @ b as the tensor-core kernels take it (csrc/sim_tile.cuh): each
+    operand split into hi = tf32(a) and lo = tf32(a - hi); lo.hi + hi.lo,
+    then hi.hi, each product of TF32 values exact in float32."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return (alo @ bhi + ahi @ blo) + ahi @ bhi
+
+
+def _split_step(q, x, inv_b2, terms=3):
+    """One mean-shift step (B, N, E) with both products by the split."""
+    s = _split_mm(q, x.transpose(1, 2), terms)
+    k = torch.exp(torch.clamp_min((s - 1.0) * inv_b2[:, None, None], -75.0))
+    o = _split_mm(k, x, terms) / torch.clamp_min(k.sum(-1, keepdim=True),
+                                                 1e-30)
+    return o / torch.sqrt(torch.clamp_min((o * o).sum(-1, keepdim=True),
+                                          1e-24))
+
+
+def test_tf32_rounding_emulation():
+    a = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                      -(1.0 + 3 * 2.0 ** -11), 3.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -9), 3.0])
+    assert torch.equal(_tf32(a), want)
+    x = torch.from_numpy(np.random.RandomState(1).randn(1000).astype(
+        np.float32))
+    hi = _tf32(x)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0 ** -11
+
+
+# The numerics of the tensor-core design of K2/K2b and K3, on the CPU
+# before any card run: one mean-shift step with both products by the
+# three-term TF32 split, on clustered unit rows of the enriched width, is
+# held to JAX's Pallas step (interpret mode) at 1e-5 at each bandwidth; a
+# single TF32 pass is not. The same split's K3 scores are held to the plain
+# scores at 1e-5.
+def test_tf32_split_step_matches_pallas(rng):
+    n, e = 512, 140
+    centres = _unit(rng, 3, 8, e)
+    lab = rng.randint(0, 8, (3, n))
+    x = np.take_along_axis(centres, lab[..., None], 1)
+    x = x + (0.1 / np.sqrt(e)) * rng.randn(3, n, e).astype(np.float32)
+    x = (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+    bw = np.array([0.05, 0.15, 0.3], np.float32)
+    want = np.asarray(mean_shift_step_pallas_batched(
+        jnp.asarray(x), jnp.asarray(x), jnp.asarray(bw), interpret=True))
+    t = torch.from_numpy(x)
+    inv_b2 = 1.0 / torch.from_numpy(bw) ** 2
+    got = _split_step(t, t, inv_b2).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    one_pass = _split_step(t, t, inv_b2, terms=1).numpy()
+    assert np.abs(one_pass - want).max() > 1e-5
+
+    rows, cols = t[0], _split_step(t, t, inv_b2)[0]
+    plain = rows @ cols.T
+    np.testing.assert_allclose(_split_mm(rows, cols.T).numpy(),
+                               plain.numpy(), atol=1e-5, rtol=0)
+    bias = torch.from_numpy(rng.randint(0, 5, n).astype(np.float32))
+    best_split = (_split_mm(rows, cols.T) + bias).max(1).values
+    best_plain, _ = ck.colmax_plain(rows, cols, bias, float("inf"), 1.0)
+    np.testing.assert_allclose(best_split.numpy(), best_plain.numpy(),
+                               atol=1e-5, rtol=0)

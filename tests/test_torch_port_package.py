@@ -56,6 +56,21 @@ def test_build_targets_sm90a_and_keys_on_sources():
     assert len(_build._digest()) == 16
 
 
+# A change to a header that the sources include (csrc/sim_tile.cuh) must
+# give another build directory, or a stale library would be loaded.
+def test_build_digest_covers_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    assert any(p.suffix == ".cuh" for p in csrc.iterdir())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest()
+    header = csrc / "sim_tile.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    assert _build._digest() != before
+
+
 def test_cpu_tensors_never_reach_the_launcher():
     with pytest.raises(ValueError, match="CUDA tensor"):
         _build.require_cuda_f32("x", torch.zeros(3))
