@@ -20,6 +20,7 @@ is not 0):
   kernels_slice2  the same for the kernel cases of the reference-default
              eval: K1 as the spectral affinity (50 farthest on xyz) and
              the bandwidth (k = 128 on the enriched subsample) call it,
+             batched and for one shape,
              K2b and K3 on the 140-d HPNet-enriched embeddings of the
              headline batch, K4 at the encoder's three layer shapes (with
              the time of the index route it replaces: K1 plus K6);
@@ -44,7 +45,8 @@ is not 0):
              seconds and K5 launches per solve, each layout's matvec against
              the scatter layout's, unit rows; then the "pallas" (K5)
              enrichment through `cluster_batch` and the metrics, held to the
-             JAX package's numbers on those clouds;
+             JAX package's numbers on those clouds, and K2b on those
+             enriched embeddings (with SDPA's time);
   predict_bigcloud  `predict_shapes` on the same 2 clouds under bench.py's
              config at N = 32768, where the auto policy takes the
              matrix-free solver: shapes/s, stage times, launches, peak
@@ -180,7 +182,8 @@ def bound_ms(flops, nbytes):
 
 
 def split_bound(dot_flops, f32_flops, nbytes):
-    """The bound of K2/K2b/K3, whose dot products run on the tensor cores
+    """The bound of K1 at D > 8 and of K2/K2b/K3, whose dot products run on
+    the tensor cores
     by the three-term TF32 split: the larger of three TF32 products for
     each f32 one (3 x dot_flops over the dense TF32 peak) and the bytes
     over the memory rate; beside it, as `bound_f32_ms`, the bound of the
@@ -192,15 +195,19 @@ def split_bound(dot_flops, f32_flops, nbytes):
             "bound_f32_ms": bound_ms(f32_flops, nbytes)[0]}
 
 
-def f64_errors(name, got, plain, exact):
+def f64_errors(name, got, plain, exact, exact_plain=None):
     """The kernel's and the float32 plain version's max error against the
-    same function in float64 (-inf entries equal in all three count 0).
-    Raises unless the kernel errs at most twice as much as the plain
-    version, the sign that the split keeps float32 accuracy."""
-    def err(t):
-        return float((t.double() - exact).abs().nan_to_num(0.0).max())
+    same function in float64 (-inf entries equal in all three count 0);
+    exact_plain, where given, is the plain version's own float64 reference
+    (K1: the distances to the neighbours it returned). Raises unless the
+    kernel errs at most twice as much as the plain version, the sign that
+    the split keeps float32 accuracy."""
+    def err(t, ref):
+        return float((t.double() - ref).abs().nan_to_num(0.0).max())
 
-    out = {"f64_err": err(got), "plain_f64_err": err(plain)}
+    out = {"f64_err": err(got, exact),
+           "plain_f64_err": err(plain, exact if exact_plain is None
+                                else exact_plain)}
     if out["f64_err"] > 2.0 * out["plain_f64_err"]:
         raise AssertionError(f"{name}: float64 error {out} above twice the "
                              "plain version's")
@@ -262,9 +269,12 @@ def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False):
     and to the returned neighbours, within 1e-5 of the rounding scale
     1 + max |q|^2; neighbour sets equal except where the plain k-th and
     (k+1)-th distances lie within 1e-6 of it, and then in at most
-    MAX_SWAPPED of the rows. largest=True: the k farthest."""
+    MAX_SWAPPED of the rows. largest=True: the k farthest. At D > 8 (the
+    tensor-core tile) the bound is the split's and the returned distances
+    must err, against float64 distances to the same neighbours, at most
+    twice as much as the plain version's."""
     import torch
-    from sednet_tpu_torch.ops.flash_topk import (compare_with_plain,
+    from sednet_tpu_torch.ops.flash_topk import (_dist_at, compare_with_plain,
                                                  flash_topk, topk_plain)
 
     kw = {"metric": metric, "largest": largest}
@@ -280,13 +290,21 @@ def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False):
     flops = b * m * n * (2 * 6 + 7 if metric == "points_normals" else 2 * d + 3)
     nbytes = 4 * (q.numel() + p.numel()) + 8 * b * m * k
     bms, by = bound_ms(flops, nbytes)
+    bound = {"bound_ms": bms, "bound_by": by}
+    if metric == "sqdist" and d > 8:
+        bound = split_bound(2 * b * m * n * d, flops, nbytes)
+        pdist, pidx = topk_plain(q, p, k, **kw)
+        q64, p64 = q.double(), p.double()
+        bound.update(f64_errors(
+            name, dist, pdist, _dist_at(q64, p64, idx, metric, 1.0),
+            _dist_at(q64, p64, pidx, metric, 1.0)))
     rec = {"case": name, "shape": list(q.shape), "k": k, **kw, **cmp,
            "ms": time_ms(lambda: flash_topk(q, p, k, **kw)),
            "plain_ms": time_ms(lambda: topk_plain(q, p, k, **kw),
                                reps=10, warmup=1),
            "library_ms": (time_ms(lambda: torch.topk(
                torch.cdist(q, p), k, largest=largest)) if library else None),
-           "bound_ms": bms, "bound_by": by}
+           **bound}
     return rec
 
 
@@ -362,12 +380,11 @@ def _fused_layer_inputs(model, x):
     return out
 
 
-def _check_wide(emb_e, bw):
-    """K2b and K3 on the 140-d enriched embeddings, run as `cluster_batch`
-    runs them: zero-padded once to 160 (`kernel_width`). Held against the
-    plain versions at 140, so the zero columns are checked too. K3 on real
-    rows: values within 1e-5 of the plain version's, and each returned
-    index scores within 1e-5 of the plain best."""
+def _check_k2b_wide(emb_e, bw, case="enriched"):
+    """K2b on the 140-d enriched embeddings, run as `cluster_batch` runs it:
+    zero-padded once to 160 (`kernel_width`). Held against the plain
+    version at 140, so the zero columns are checked too. Returns the case
+    and the kernel's step at 160."""
     import torch
     import torch.nn.functional as F
     from sednet_tpu_torch.ops import cuda_kernels as ck
@@ -386,7 +403,7 @@ def _check_wide(emb_e, bw):
         raise AssertionError(f"K2b E={e}: max abs error {err} > 1e-5, or "
                              "padding columns not zero")
     ep = emb_p.shape[-1]
-    k2b = {"case": f"enriched E={e}", "shape": [b, n, e],
+    k2b = {"case": f"{case} E={e}", "shape": [b, n, e],
            "run_width": ep, "max_abs_err": err, "tol": 1e-5,
            **f64_errors(f"K2b E={e}", got, want, exact),
            "ms": time_ms(lambda: ck.mean_shift_step_batched(emb_p, emb_p, bw)),
@@ -401,7 +418,22 @@ def _check_wide(emb_e, bw):
            **split_bound(4 * b * n * n * e, b * n * n * (4 * e + 4),
                          4 * 3 * b * n * e),
            "bound_run_width_ms": 3e3 * 4 * b * n * n * ep / PEAK_TF32_FLOPS}
+    return k2b, got_p
 
+
+def _check_wide(emb_e, bw):
+    """K2b (`_check_k2b_wide`) and K3 on the 140-d enriched embeddings, run
+    at the padded 160. K3 on real rows: values within 1e-5 of the plain
+    version's, and each returned index scores within 1e-5 of the plain
+    best."""
+    import torch
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+
+    k2b, got_p = _check_k2b_wide(emb_e, bw)
+    n, e = emb_e.shape[1:]
+    emb_p = ck.kernel_width(emb_e)
+    ep = emb_p.shape[-1]
+    got = got_p[..., :e]
     rows, cols = emb_e[0], got[0].contiguous()
     rows_p, cols_p = emb_p[0], got_p[0]
     zeros = torch.zeros(n, device=rows.device)
@@ -565,10 +597,16 @@ def phase_kernels_slice2(models, x):
     xs = torch.stack([emb_p[i][sels[i].to(emb_p.device)]
                       for i in range(BATCH)]).contiguous()
     xyz = x[..., :3].contiguous()
-    k1 = [check_topk(f"spectral 50 farthest ({BATCH} shapes)", xyz, xyz,
-                     predict_cfg().spectral_knn, largest=True),
-          check_topk(f"bandwidth E={emb_e.shape[-1]} at {emb_p.shape[-1]} "
-                     f"({BATCH} shapes)", xs, xs, 128)]
+    far = predict_cfg().spectral_knn
+    wide = f"E={emb_e.shape[-1]} at {emb_p.shape[-1]}"
+    # the batched calls, then one shape as cluster_batch (bandwidth) and
+    # normal_affinity_topk (farthest) call it
+    k1 = [check_topk(f"spectral {far} farthest ({BATCH} shapes)", xyz, xyz,
+                     far, largest=True),
+          check_topk(f"bandwidth {wide} ({BATCH} shapes)", xs, xs, 128),
+          check_topk(f"bandwidth {wide}, one shape", xs[0], xs[0], 128),
+          check_topk(f"spectral {far} farthest, one shape", xyz[0], xyz[0],
+                     far, largest=True)]
     k2b_e, k3_e = _check_wide(emb_e, bw_e)
     out = {"K1": k1, "K2b": [k2b_e], "K3": [k3_e],
            "K4": [check_fused(name, g, a, K, metric) for name, g, a, metric
@@ -1097,6 +1135,7 @@ def phase_spectral_matfree(models, shapes, x, inputs):
     import numpy as np
     import torch
     from sednet_tpu_torch.cluster import cluster_batch
+    from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
     from sednet_tpu_torch.cluster.spectral import (TRANSPOSE_MODES,
                                                    _default_vocab_cap,
                                                    hpnet_enrich,
@@ -1167,6 +1206,12 @@ def phase_spectral_matfree(models, shapes, x, inputs):
     counts = read_counts()
     if counts["K5"] <= 0:
         raise AssertionError("the pallas enrichment launched K5 no time")
+    # K2b on these embeddings at each cloud's bandwidth, as predict_bigcloud
+    # runs it (2, 32768, 140 at 160), with SDPA's time beside it
+    bw = torch.stack([torch.clamp_min(compute_bandwidth(
+        emb_n[i], cfg.ms_num_samples, np.float32(cfg.ms_quantile),
+        sel=sels[i]), 0.003) for i in range(b)])
+    k2b, _ = _check_k2b_wide(emb_n.contiguous(), bw, f"{b} clouds,")
     got = _metrics(shapes, labels.cpu().numpy(),
                    type_lp.argmax(-1).cpu().numpy())
     ok = all(abs(got[m] - REF_BIG_MEAN[m]) <= BIG_TOL[m] for m in got)
@@ -1176,11 +1221,11 @@ def phase_spectral_matfree(models, shapes, x, inputs):
                     "cap": _default_vocab_cap(n)},
           "pallas_enrichment": {**got, "num_clusters": nums.tolist(),
                                 "launches": counts},
-          "ref": REF_BIG_MEAN, "tol": BIG_TOL})
+          "ref": REF_BIG_MEAN, "tol": BIG_TOL, "K2b": k2b})
     if not ok:
         raise AssertionError(f"pallas enrichment metrics {got} not within "
                              f"{BIG_TOL} of {REF_BIG_MEAN}")
-    return counts
+    return counts, k2b
 
 
 def phase_predict_bigcloud(models, shapes, inputs):
@@ -1264,8 +1309,9 @@ def main():
                    for _ in range(BIG_BATCH)],
                   [torch.randperm(BIG_POINTS, generator=gen)[:5000]
                    for _ in range(BIG_BATCH)])
-    matfree_counts = phase_spectral_matfree(models, big_shapes, big_x,
-                                            big_inputs)
+    matfree_counts, k2b_big = phase_spectral_matfree(models, big_shapes,
+                                                     big_x, big_inputs)
+    timings["K2b"].append(k2b_big)
     phase_predict_bigcloud(models, big_shapes, big_inputs)
     # each kernel's launches from the path of this smoke that runs it:
     # K2b and K6 from the reference-default eval, K4 from its fused form,

@@ -13,205 +13,700 @@
 // farthest first), ties broken by the lower column index.
 //
 // Bound on the H100: operations. A layer-2 graph at B=8, N=10000, D=64 is
-// 2*B*N*N*D = 1.0e11 flops of distances on the float32 CUDA cores (the
-// reference keeps them at HIGHEST precision), while its inputs and outputs
-// are a few tens of MB.
+// 2*B*N*N*D = 1.0e11 flops of dot products, kept at float32 accuracy on
+// the tensor cores by the three-term TF32 split (sim_tile.cuh): 0.62 ms at
+// 495 TFLOP/s. At widths of 3 and 6 the distances cost almost nothing and
+// the selection is the work: 8e8 candidates for the spectral farthest-50.
 //
-// Design. A block owns 32 query rows of one shape and streams 64-column
-// tiles of p through shared memory. Each of 256 threads computes a 2x4 piece
-// of the 32x64 distance tile and writes it to shared memory. Then each warp
-// takes 4 rows: the 32 lanes test two candidates each against the row's
-// current k-th best value (the list is kept sorted in shared memory, so that
-// value is one load), a ballot collects the candidates below it, and they
-// are inserted one at a time, lowest column first, by the whole warp (each
-// lane moves up to 4 list entries). A candidate equal to the k-th value is
-// rejected: the entry already there has the lower index. This threshold
-// test is the exactness argument of the TPU kernel's `k_lane` skip: once
-// the list is full, most tiles insert nothing. Batched inputs are one
-// launch with the batch on the grid's y axis.
+// Design. A block of 8 warps owns 64 query rows of one shape, 8 a warp for
+// the selection, and walks a range of columns 32 at a time.
+//   * Selection (knn_select.cuh): each row's best KP >= k pairs sit in
+//     shared memory, ascending by (value, column), beside a queue of QP
+//     candidates (64; 32 where that fits more blocks on an SM, or k <= 32)
+//     and the value of the row's k-th pair, the threshold. A warp takes a
+//     tile's 32 candidates of each of its 8 rows at once (8 ballots, no
+//     branch between the rows: at k = 128 most rows have a hit in most
+//     tiles) and appends those not above the threshold to the row's queue
+//     (each lane writes its own, at its rank among the row's hits). When a
+//     queue would overflow, or at the end, the warp sorts it (bitonic, over
+//     shuffles), merges it into the list in registers and takes the new
+//     threshold. So a candidate costs a compare and a ballot, a hit a
+//     store, and the list's work is paid QP hits at a time: random order
+//     gives some k (1 + ln(n/k)) hits a row (about 390 for a 10000-point
+//     graph at k = 64).
+//   * Distances, sqdist at D > 8: the block's 64 x 32 tile of q.p on the
+//     tensor cores (mma.sync.m16n8k8, three-term TF32 split: every product
+//     exact, short chains added in f32 on the CUDA cores), the norms |q|^2
+//     and |p|^2 in f32 from a pre-pass; rows zero-padded to a multiple of 16
+//     in shared memory, q's split once where there is room. Two warps share
+//     each 16-row m-tile, 16 columns each, write it to their distance tile
+//     and select 8 rows each from it. p tiles land by cp.async in two
+//     stages behind mbarriers, with no block-wide barrier in the walk: a
+//     warp that merges a queue holds back only its m-tile partner, and the
+//     others by at most a tile less than the merge takes.
+//   * Distances, D <= 8 and points_normals: each lane holds one column in
+//     registers and computes its warp's 8 rows' distances on the CUDA cores
+//     straight into the ballots; no tile, no barrier.
+//   * Launch: of the compiled variants (queue length; q split once or at
+//     every k-step) the one with the most blocks an SM, since the kernel
+//     waits on latency. Where the row blocks leave room on the card (157
+//     for one 10000-point shape), a cluster of 2 or 4 blocks splits each
+//     row block's columns, as far as they still fit at once, and the
+//     partial lists of a row merge by the (value, column) key through
+//     distributed shared memory, in rank order, with no atomics and no
+//     scratch. Each part refills its own list, so a split that adds a wave
+//     costs more than it gains (5000 rows stay whole).
+// Batched inputs are one launch with the batch on the grid's y axis.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include "knn_select.cuh"
+#include "sim_tile.cuh"
 
 namespace {
 
-constexpr int RB = 32;        // query rows per block
-constexpr int CB = 64;        // columns per tile
-constexpr int THREADS = 256;  // 16 x 16 for the distance tile, 8 warps to select
-constexpr int KMAX = 128;
-constexpr int DS = CB + 1;    // padded row stride of the distance tile
+namespace cg = cooperative_groups;
+using knn_select::NO_COL;
 
-__host__ __device__ inline int tile_stride(int d) { return d | 1; }
+constexpr int RB = 64;        // query rows per block
+constexpr int WARPS = 8;
+constexpr int RW = RB / WARPS;   // rows a warp selects
+constexpr int THREADS = 32 * WARPS;
+constexpr int CB = 32;        // columns per tile
+constexpr int MT = RB / 16;   // m-tiles of the tensor path
+constexpr int WPM = WARPS / MT;  // warps an m-tile
+constexpr int CW = CB / WPM;  // columns a warp computes of a tile
+constexpr int NT = CW / 8;    // its 8-column n-tiles
+constexpr int KC = 2;         // k-steps summed in one fresh fragment
+constexpr int WS = CB + 1;    // row stride of a distance tile
+constexpr int SMALL_D = 8;    // widest sqdist row of the CUDA-core path
+constexpr int QS = 12;        // row stride of q there: 8 channels, |q|^2, pad
+constexpr int MAX_SPLIT = 4;  // blocks of a cluster
+constexpr unsigned FULL = 0xffffffffu;
 
-__host__ inline int smem_bytes(int d) {
-  const int s = tile_stride(d);
-  return (RB * s + CB * s + RB + CB + RB * DS) * 4 + RB * KMAX * 8;
+struct Args {
+  const float* q;
+  const float* p;
+  const float* qn;      // |q|^2 (sqdist on the tensor cores)
+  const float* pn;      // |p|^2
+  long long q_bstride, p_bstride, pn_bstride;
+  int m, n, d, k, metric, largest, split;
+  int vec;              // 16-byte copies: D % 4 == 0 and q, p aligned
+  float w;
+  float* out_d;
+  int* out_i;
+};
+
+// The columns [c_lo, c_hi) that block `part` of `split` walks.
+__device__ __forceinline__ void column_range(int n, int split, int part,
+                                             int& c_lo, int& c_hi) {
+  const int per = ((n + split - 1) / split + CB - 1) / CB * CB;
+  c_lo = min(n, part * per);
+  c_hi = min(n, c_lo + per);
 }
 
+// The selection state of a block's rows, in shared memory: lists (KP =
+// 32 KPL pairs a row), queues (QP = 32 QPL pairs a row, QPL <= KPL),
+// thresholds and queue lengths.
+struct Select {
+  float* lv;
+  int* li;
+  float* qv;
+  int* qi;
+  float* thr;
+  int* qlen;
+};
+
+__host__ __device__ constexpr int select_bytes(int kpl, int qpl) {
+  return RB * 32 * (kpl + qpl) * 8 + RB * 8;
+}
+
+// Empty lists (the caller syncs before use); returns the state and, in
+// `rest`, the shared memory after it.
+template <int KPL, int QPL>
+__device__ __forceinline__ Select init_select(unsigned char* smem,
+                                              float*& rest) {
+  constexpr int KP = 32 * KPL, QP = 32 * QPL;
+  Select s;
+  s.lv = (float*)smem;
+  s.li = (int*)(s.lv + RB * KP);
+  s.qv = (float*)(s.li + RB * KP);
+  s.qi = (int*)(s.qv + RB * QP);
+  s.thr = (float*)(s.qi + RB * QP);
+  s.qlen = (int*)(s.thr + RB);
+  rest = (float*)(s.qlen + RB);
+  for (int i = threadIdx.x; i < RB * KP; i += THREADS) {
+    s.lv[i] = CUDART_INF_F;
+    s.li[i] = NO_COL;
+  }
+  for (int i = threadIdx.x; i < RB; i += THREADS) {
+    s.thr[i] = CUDART_INF_F;
+    s.qlen[i] = 0;
+  }
+  return s;
+}
+
+// Merge row r's queue of qn <= QP candidates into its list; returns the
+// value of the new k-th pair.
+template <int KPL, int QPL>
+__device__ __forceinline__ float flush(const Select& s, int r, int qn,
+                                       int k) {
+  constexpr int KP = 32 * KPL, QP = 32 * QPL;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();   // the queue's entries were written by other lanes
+  float cv[QPL];
+  int ci[QPL];
+#pragma unroll
+  for (int j = 0; j < QPL; ++j) {
+    const int e = 32 * j + lane;
+    cv[j] = e < qn ? s.qv[r * QP + e] : CUDART_INF_F;
+    ci[j] = e < qn ? s.qi[r * QP + e] : NO_COL;
+  }
+  __syncwarp();   // read before the next hits overwrite it
+  float v[KPL];
+  int ix[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    v[j] = s.lv[r * KP + 32 * j + lane];
+    ix[j] = s.li[r * KP + 32 * j + lane];
+  }
+  knn_select::add_sorted(v, ix, cv, ci);
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    s.lv[r * KP + 32 * j + lane] = v[j];
+    s.li[r * KP + 32 * j + lane] = ix[j];
+  }
+  return knn_select::value_at(v, k - 1);
+}
+
+// flush, out of line: the tile step without a merge stays small.
+template <int KPL, int QPL>
+__device__ __noinline__ float flush_row(Select s, int r, int qn, int k) {
+  return flush<KPL, QPL>(s, r, qn, k);
+}
+
+// One tile's candidates of the warp's RW rows (from block row rb, `rows`
+// of them real): v[rr] is row rr's candidate in column c, one a lane. The
+// rows are independent, so each step runs for all of them at once: test
+// against the thresholds, flush the queues that would overflow, append.
+// Every lane writes the same threshold and queue length, so each reads
+// back what it wrote.
+template <int KPL, int QPL>
+__device__ __forceinline__ void select_tile(const Select& s, int rb,
+                                            int rows, const float (&v)[RW],
+                                            int c, bool valid, int k) {
+  constexpr int QP = 32 * QPL;
+  const int lane = threadIdx.x & 31;
+  bool pass[RW];
+  unsigned hit[RW], any = 0;
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr) {
+    pass[rr] = valid && rr < rows && v[rr] <= s.thr[rb + rr];
+    hit[rr] = __ballot_sync(FULL, pass[rr]);
+    any |= hit[rr];
+  }
+  if (!any) return;
+  int qn[RW];
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr) {
+    qn[rr] = s.qlen[rb + rr];
+    if (qn[rr] + __popc(hit[rr]) > QP) {
+      const float tv = flush_row<KPL, QPL>(s, rb + rr, qn[rr], k);
+      s.thr[rb + rr] = tv;
+      qn[rr] = 0;
+      pass[rr] = pass[rr] && v[rr] <= tv;
+      hit[rr] = __ballot_sync(FULL, pass[rr]);
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr) {
+    const int r = rb + rr;
+    if (pass[rr]) {
+      const int pos = qn[rr] + __popc(hit[rr] & below);
+      s.qv[r * QP + pos] = v[rr];
+      s.qi[r * QP + pos] = c;
+    }
+    s.qlen[r] = qn[rr] + __popc(hit[rr]);   // 0 after a flush and no hit
+  }
+}
+
+// After the column walk: merge what is left in the queues of the warp's
+// rows, from block row rb on.
+template <int KPL, int QPL>
+__device__ __forceinline__ void flush_all(const Select& s, int rb, int rows,
+                                          int k) {
+  for (int rr = 0; rr < rows; ++rr) {
+    const int qn = s.qlen[rb + rr];
+    if (qn) flush<KPL, QPL>(s, rb + rr, qn, k);
+  }
+}
+
+// Merge the cluster's partial lists of each row and write the first k.
+// Block `part` finishes rows [part, part + 1) * RB / split.
+template <int KPL>
+__device__ void finish(const Args& a, const Select& s, int b, int r0,
+                       int part) {
+  constexpr int KP = 32 * KPL;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();   // every block of the cluster has its lists
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = RB / a.split;
+  for (int rr = warp; rr < per; rr += WARPS) {
+    const int r = part * per + rr;
+    if (r0 + r >= a.m) break;
+    float v[KPL];
+    int ix[KPL];
+    const float* v0 = cluster.map_shared_rank(s.lv, 0) + r * KP;
+    const int* i0 = cluster.map_shared_rank(s.li, 0) + r * KP;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      v[j] = v0[32 * j + lane];
+      ix[j] = i0[32 * j + lane];
+    }
+    for (int src = 1; src < a.split; ++src) {
+      const float* vs = cluster.map_shared_rank(s.lv, src) + r * KP;
+      const int* is = cluster.map_shared_rank(s.li, src) + r * KP;
+      float rv[KPL];
+      int ri[KPL];
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        rv[j] = vs[KP - 1 - 32 * j - lane];
+        ri[j] = is[KP - 1 - 32 * j - lane];
+      }
+      knn_select::merge_reversed(v, ix, rv, ri);
+    }
+    const size_t o = ((size_t)b * a.m + r0 + r) * a.k;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int e = 32 * j + lane;
+      if (e < a.k) {
+        a.out_d[o + e] = a.largest ? -v[j] : v[j];
+        a.out_i[o + e] = ix[j];
+      }
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its lists
+}
+
+// D <= 8 and points_normals: distances on the CUDA cores, lane by column.
+// DC: the channels read, 3 (sqdist on xyz), 6 (points_normals) or 8 (any
+// other sqdist width up to 8, zero-padded).
+template <int KPL, int QPL, int DC>
 __global__ void __launch_bounds__(THREADS)
-topk_kernel(const float* __restrict__ q, const float* __restrict__ p,
-            long long q_bstride, long long p_bstride, int m, int n, int d,
-            int k, int metric, float w, int largest,
-            float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  const int S = tile_stride(d);
-  float* qs = smem;              // RB x S
-  float* ps = qs + RB * S;       // CB x S
-  float* qq = ps + CB * S;       // RB
-  float* pp = qq + RB;           // CB
-  float* dt = pp + CB;           // RB x DS
-  float* lv = dt + RB * DS;      // RB x KMAX sorted best values
-  int* li = (int*)(lv + RB * KMAX);  // RB x KMAX their columns
-
+topk_small(Args a) {
+  constexpr int DN = DC == 6 ? 3 : DC;   // channels of the squared norms
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs;   // RB x QS
+  const Select s = init_select<KPL, QPL>(smem, qs);
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * RB;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* qb = q + b * q_bstride;
-  const float* pb = p + b * p_bstride;
-  // channels entering the squared norms: all for sqdist, xyz for points_normals
-  const int dn = metric == 0 ? d : 3;
+  const int part = (int)(blockIdx.x % a.split);
+  const int r0 = (int)(blockIdx.x / a.split) * RB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* qb = a.q + b * a.q_bstride;
+  const float* pb = a.p + b * a.p_bstride;
+  const int dc = min(DC, a.d);
 
-  for (int i = tid; i < RB * d; i += THREADS) {
-    const int r = i / d, e = i % d;
-    qs[r * S + e] = r0 + r < m ? qb[(size_t)(r0 + r) * d + e] : 0.f;
-  }
-  for (int i = tid; i < RB * KMAX; i += THREADS) {
-    lv[i] = CUDART_INF_F;
-    li[i] = 0;
+  for (int r = threadIdx.x; r < RB; r += THREADS) {
+    float qq = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = (r0 + r < a.m && e < dc)
+                          ? qb[(size_t)(r0 + r) * a.d + e] : 0.f;
+      qs[r * QS + e] = x;
+      if (e < DN) qq = fmaf(x, x, qq);
+    }
+    qs[r * QS + 8] = qq;
   }
   __syncthreads();
-  if (tid < RB) {
-    float acc = 0.f;
-    for (int e = 0; e < dn; ++e) acc = fmaf(qs[tid * S + e], qs[tid * S + e], acc);
-    qq[tid] = acc;
-  }
 
-  for (int c0 = 0; c0 < n; c0 += CB) {
-    __syncthreads();  // previous tile's ps and dt are no longer read
-    for (int i = tid; i < CB * d; i += THREADS) {
-      const int c = i / d, e = i % d;
-      ps[c * S + e] = c0 + c < n ? pb[(size_t)(c0 + c) * d + e] : 0.f;
-    }
-    __syncthreads();
-    if (tid < CB) {
-      float acc = 0.f;
-      for (int e = 0; e < dn; ++e) acc = fmaf(ps[tid * S + e], ps[tid * S + e], acc);
-      pp[tid] = acc;
-    }
-    __syncthreads();
-
-    // distance tile: thread (ty, tx) owns rows ty, ty + 16 and columns tx + 16*j
-    float s[2][4], sn[2][4];
+  const int rb = warp * RW;
+  int c_lo, c_hi;
+  column_range(a.n, a.split, part, c_lo, c_hi);
+  const int rows = min(RW, max(0, a.m - r0 - rb));
+  for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
+    const int c = c0 + lane;
+    const bool valid = c < c_hi;
+    float pv[DC];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int e = 0; e < DC; ++e)
+      pv[e] = (valid && e < dc) ? pb[(size_t)c * a.d + e] : 0.f;
+    float pp = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = sn[i][j] = 0.f;
-    if (metric == 0) {
-      for (int e = 0; e < d; ++e) {
-        float qv[2], pv[4];
+    for (int e = 0; e < DN; ++e) pp = fmaf(pv[e], pv[e], pp);
+    float v[RW];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) qv[i] = qs[(ty + 16 * i) * S + e];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pv[j] = ps[(tx + 16 * j) * S + e];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], pv[j], s[i][j]);
+    for (int rr = 0; rr < RW; ++rr) {
+      const float* qr = qs + (rb + rr) * QS;
+      const float4 q0 = *(const float4*)qr;
+      float sd = fmaf(q0.x, pv[0], 0.f);
+      sd = fmaf(q0.y, pv[1], sd);
+      sd = fmaf(q0.z, pv[2], sd);
+      float dv;
+      if (DC == 6) {
+        const float2 q1 = *(const float2*)(qr + 4);
+        float sn = fmaf(q0.w, pv[3 % DC], 0.f);
+        sn = fmaf(q1.x, pv[4 % DC], sn);
+        sn = fmaf(q1.y, pv[5 % DC], sn);
+        dv = (qr[8] + pp - 2.f * sd) * (1.f + a.w * (2.f - 2.f * sn));
+      } else {
+        if (DC == 8) {
+          const float4 q1 = *(const float4*)(qr + 4);
+          sd = fmaf(q0.w, pv[3 % DC], sd);
+          sd = fmaf(q1.x, pv[4 % DC], sd);
+          sd = fmaf(q1.y, pv[5 % DC], sd);
+          sd = fmaf(q1.z, pv[6 % DC], sd);
+          sd = fmaf(q1.w, pv[7 % DC], sd);
+        }
+        dv = qr[8] + pp - 2.f * sd;
       }
-    } else {
-      for (int e = 0; e < 6; ++e) {
-        float qv[2], pv[4];
+      v[rr] = a.largest ? -dv : dv;
+    }
+    select_tile<KPL, QPL>(s, rb, rows, v, c, valid, a.k);
+  }
+  flush_all<KPL, QPL>(s, rb, rows, a.k);
+  finish<KPL>(a, s, b, r0, part);
+}
+
+// Rows [r0, r0 + rows) of a (n, d) array into shared memory at stride st,
+// zero past d (up to the padded width E) and past n; 16-byte copies when
+// d is a multiple of 4 and the array is aligned, else 4-byte ones.
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int rows, int n, int d,
+                                          int E, int st, bool vec) {
+  if (vec) {
+    const int chunks = E / 4;
+    for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
+      const int r = i / chunks, ch = i % chunks;
+      const bool ok = r0 + r < n && 4 * ch < d;
+      sim_tile::cp_async16(dst + r * st + 4 * ch,
+                           src + (ok ? (size_t)(r0 + r) * d + 4 * ch : 0), ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * E; i += THREADS) {
+      const int r = i / E, e = i % E;
+      const bool ok = r0 + r < n && e < d;
+      const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst + r * st + e);
+      const float* g = src + (ok ? (size_t)(r0 + r) * d + e : 0);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                   :: "r"(sa), "l"(g), "r"(ok ? 4 : 0) : "memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void load_norms(float* dst, const float* src,
+                                           int r0, int rows, int n) {
+  for (int i = threadIdx.x; i < rows; i += THREADS) {
+    const bool ok = r0 + i < n;
+    const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(sa), "l"(src + (ok ? r0 + i : 0)), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__host__ __device__ inline int padded_width(int d) {
+  return (d + 15) / 16 * 16;
+}
+
+// mbarriers of the tensor path's p-tile stages: "full" completes when every
+// thread's copies of a tile have landed (cp.async.mbarrier.arrive.noinc,
+// THREADS arrivals), "empty" when every warp has read it (WARPS arrivals).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{ .reg .b64 st; mbarrier.arrive.shared.b64 st, [%0]; }"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A pipeline that never
+// completes (a fault in this file) ends the launch with an error rather
+// than spinning for good.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared.b64 p, [%1], %2;"
+        " selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1 << 22)) __trap();
+  }
+}
+
+// Shared memory of a block: the selection state, then the path's tiles
+// (with `pre`, q's rows twice: their TF32 hi and lo parts).
+__host__ inline int smem_bytes(int kpl, int qpl, int d, bool tensor,
+                               bool pre) {
+  if (!tensor) return select_bytes(kpl, qpl) + RB * QS * 4;
+  const int st = padded_width(d) + 4;
+  return select_bytes(kpl, qpl) + 4 * 8 +
+         ((pre ? 2 : 1) * RB * st + 2 * CB * st + RB + 2 * CB + RB * WS) * 4;
+}
+
+// sqdist at D > 8: q.p on the tensor cores by the three-term TF32 split.
+// PRE: q's rows are split once, into hi and lo parts side by side in shared
+// memory (where it has room), not at every k-step.
+template <int KPL, int QPL, bool PRE>
+__global__ void __launch_bounds__(THREADS, 2)
+topk_tensor(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int E = padded_width(a.d);
+  const int S = E + 4;
+  float* rest;
+  const Select s = init_select<KPL, QPL>(smem, rest);
+  uint64_t* full = (uint64_t*)rest;     // 2 stages
+  uint64_t* empty = full + 2;
+  float* qs = (float*)(full + 4);       // RB x S
+  float* qlo = qs + RB * S;             // RB x S with PRE
+  float* ps = qlo + (PRE ? RB * S : 0);  // 2 stages of CB x S
+  float* qq = ps + 2 * CB * S;          // RB
+  float* pp = qq + RB;                  // 2 stages of CB
+  float* dt = pp + 2 * CB;              // RB x WS
+  const int b = blockIdx.y;
+  const int part = (int)(blockIdx.x % a.split);
+  const int r0 = (int)(blockIdx.x / a.split) * RB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qb = a.q + b * a.q_bstride;
+  const float* pb = a.p + b * a.p_bstride;
+  const float* pnb = a.pn + b * a.pn_bstride;
+
+  int c_lo, c_hi;
+  column_range(a.n, a.split, part, c_lo, c_hi);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full + i, THREADS);
+      mbar_init(empty + i, WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  load_rows(qs, qb, r0, RB, a.m, a.d, E, S, a.vec);
+  load_norms(qq, a.qn + (size_t)b * a.m, r0, RB, a.m);
+  sim_tile::cp_async_commit();
+  sim_tile::cp_async_wait<0>();
+  __syncthreads();   // q's rows, the lists and the mbarriers are ready
+  if (PRE) {
+    for (int i = threadIdx.x; i < RB * S; i += THREADS) {
+      uint32_t hi, lo;
+      sim_tile::split(qs[i], hi, lo);
+      qs[i] = __uint_as_float(hi);
+      qlo[i] = __uint_as_float(lo);
+    }
+    __syncthreads();
+  }
+  load_rows(ps, pb, c_lo, CB, c_hi, a.d, E, S, a.vec);
+  load_norms(pp, pnb, c_lo, CB, c_hi);
+  mbar_arrive_copies(full);
+
+  // warps mt, mt + MT, .. share m-tile mt (rows 16 mt ..): columns CW h ..
+  // of each tile for the products, rows 16 mt + RW h .. for the selection
+  const int mt = warp % MT, h = warp / MT;
+  const float* arow = qs + 16 * mt * S;
+  const float* arow_lo = qlo + 16 * mt * S;
+  float* mtile = dt + 16 * mt * WS;
+  const int rb = 16 * mt + RW * h;
+  const int rows = min(RW, max(0, a.m - r0 - rb));
+  // No block-wide barrier in the walk: a warp waits for a tile to land
+  // (full) and, before it refills a stage, for every warp to have read the
+  // tile there (empty), which each does before its selection; so a warp
+  // merging a queue delays the others by up to a tile less than it takes.
+  for (int c0 = c_lo, it = 0; c0 < c_hi; c0 += CB, ++it) {
+    const int stage = it & 1;
+    mbar_wait(full + stage, (it >> 1) & 1);
+    const float* cols = ps + stage * CB * S + CW * h * S;
+    const float* ppt = pp + stage * CB + CW * h;
+
+    float sim[NT][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) qv[i] = qs[(ty + 16 * i) * S + e];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) pv[j] = ps[(tx + 16 * j) * S + e];
-        if (e < 3) {
+      for (int v = 0; v < 4; ++v) sim[j][v] = 0.f;
+#pragma unroll 4
+    for (int k0 = 0; k0 < E / 8; k0 += KC) {
+      float lohi[NT][4], hilo[NT][4], hihi[NT][4];
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], pv[j], s[i][j]);
+        for (int v = 0; v < 4; ++v) lohi[j][v] = hilo[j][v] = hihi[j][v] = 0.f;
+#pragma unroll
+      for (int kk = k0; kk < k0 + KC; ++kk) {
+        const int ao = g * S + 8 * kk + t;
+        uint32_t ahi[4], alo[4];
+        if (PRE) {
+          const int off[4] = {ao, ao + 8 * S, ao + 4, ao + 8 * S + 4};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ahi[i] = __float_as_uint(arow[off[i]]);
+            alo[i] = __float_as_uint(arow_lo[off[i]]);
+          }
         } else {
+          sim_tile::split(arow[ao], ahi[0], alo[0]);
+          sim_tile::split(arow[ao + 8 * S], ahi[1], alo[1]);
+          sim_tile::split(arow[ao + 4], ahi[2], alo[2]);
+          sim_tile::split(arow[ao + 8 * S + 4], ahi[3], alo[3]);
+        }
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sn[i][j] = fmaf(qv[i], pv[j], sn[i][j]);
+        for (int j = 0; j < NT; ++j) {
+          const float* bp = cols + (8 * j + g) * S + 8 * kk + t;
+          uint32_t bhi[2], blo[2];
+          sim_tile::split(bp[0], bhi[0], blo[0]);
+          sim_tile::split(bp[4], bhi[1], blo[1]);
+          sim_tile::mma(lohi[j], alo, bhi);
+          sim_tile::mma(hilo[j], ahi, blo);
+          sim_tile::mma(hihi[j], ahi, bhi);
         }
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          sim[j][v] += (lohi[j][v] + hilo[j][v]) + hihi[j][v];
     }
+    // the m-tile's warps are done with the last tile's distances
+    asm volatile("bar.sync %0, %1;" :: "r"(1 + mt), "r"(32 * WPM) : "memory");
+    // C fragment v of n-tile j: row g + 8 (v / 2), column 8 j + 2 t + v % 2
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        float v = qq[r] + pp[c] - 2.f * s[i][j];
-        if (metric != 0) v = v * (1.f + w * (2.f - 2.f * sn[i][j]));
-        if (largest) v = -v;
-        // columns past n never pass the strict test against the list
-        dt[r * DS + c] = c0 + c < n ? v : CUDART_INF_F;
+      for (int v = 0; v < 4; ++v) {
+        const int r = g + 8 * (v >> 1), c = 8 * j + 2 * t + (v & 1);
+        const float dv = qq[16 * mt + r] + ppt[c] - 2.f * sim[j][v];
+        mtile[r * WS + CW * h + c] = a.largest ? -dv : dv;
       }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + stage);   // this warp read the stage
+    if (c0 + CB < c_hi) {   // refill the other stage, read by every warp
+      if (it > 0) mbar_wait(empty + (stage ^ 1), ((it - 1) >> 1) & 1);
+      load_rows(ps + (stage ^ 1) * CB * S, pb, c0 + CB, CB, c_hi, a.d, E, S,
+                a.vec);
+      load_norms(pp + (stage ^ 1) * CB, pnb, c0 + CB, CB, c_hi);
+      mbar_arrive_copies(full + (stage ^ 1));
+    }
+    // the m-tile's warps have all written it (named barrier 1 + mt)
+    asm volatile("bar.sync %0, %1;" :: "r"(1 + mt), "r"(32 * WPM) : "memory");
+    const int c = c0 + lane;
+    const bool valid = c < c_hi;
+    float v[RW];
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) v[rr] = mtile[(RW * h + rr) * WS + lane];
+    select_tile<KPL, QPL>(s, rb, rows, v, c, valid, a.k);
+  }
+  flush_all<KPL, QPL>(s, rb, rows, a.k);
+  finish<KPL>(a, s, b, r0, part);
+}
 
-    // selection: warp `warp` owns rows 4*warp .. 4*warp + 3
-    for (int rr = 0; rr < RB / 8; ++rr) {
-      const int r = warp * (RB / 8) + rr;
-      if (r0 + r >= m) break;  // warp-uniform
-      float* bv = lv + r * KMAX;
-      int* bi = li + r * KMAX;
-      float thr = bv[k - 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float dv = dt[r * DS + lane + 32 * half];
-        unsigned mask = __ballot_sync(0xffffffffu, dv < thr);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float v = __shfl_sync(0xffffffffu, dv, src);
-          if (!(v < thr)) continue;  // the list moved since the ballot
-          const int col = c0 + src + 32 * half;
-          // insertion point = number of entries <= v (equal entries have
-          // lower columns and stay in front)
-          float keep_v[KMAX / 32], prev_v[KMAX / 32];
-          int prev_i[KMAX / 32];
-          int pos_ins = 0;
-#pragma unroll
-          for (int t = 0; t < KMAX / 32; ++t) {
-            const int pos = lane + 32 * t;
-            const bool in = pos < k;
-            keep_v[t] = in ? bv[pos] : CUDART_INF_F;
-            prev_v[t] = (in && pos > 0) ? bv[pos - 1] : CUDART_INF_F;
-            prev_i[t] = (in && pos > 0) ? bi[pos - 1] : 0;
-            pos_ins += __popc(__ballot_sync(0xffffffffu, in && keep_v[t] <= v));
-          }
-          __syncwarp();
-#pragma unroll
-          for (int t = 0; t < KMAX / 32; ++t) {
-            const int pos = lane + 32 * t;
-            if (pos < k && pos >= pos_ins) {
-              bv[pos] = pos == pos_ins ? v : prev_v[t];
-              bi[pos] = pos == pos_ins ? col : prev_i[t];
-            }
-          }
-          __syncwarp();
-          thr = bv[k - 1];
-        }
-      }
+// |row|^2 of each row of x (rows of width d), in f32 in channel order.
+__global__ void row_norms(const float* __restrict__ x, int rows, int d,
+                          float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* xr = x + (size_t)r * d;
+  float acc = 0.f;
+  for (int e = 0; e < d; ++e) acc = fmaf(xr[e], xr[e], acc);
+  out[r] = acc;
+}
+
+constexpr int SMEM_MAX = 232448;   // a block's shared memory on sm_90
+
+// The kernel of a path, a queue length and (tensor path) whether q is
+// split once, with its shared memory; tried in this order, the first with
+// the most blocks an SM wins (the kernel waits on latency, so occupancy
+// comes first).
+struct Variant {
+  void (*kernel)(Args);
+  int bytes;
+};
+
+template <int KPL>
+int launch(Args a, int batch, bool tensor, cudaStream_t stream) {
+  constexpr int Q2 = KPL < 2 ? KPL : 2;   // 64-entry queues where k > 32
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  Variant cands[4];
+  int nc = 0;
+  if (tensor) {
+    cands[nc++] = {topk_tensor<KPL, Q2, true>,
+                   smem_bytes(KPL, Q2, a.d, true, true)};
+    cands[nc++] = {topk_tensor<KPL, 1, true>,
+                   smem_bytes(KPL, 1, a.d, true, true)};
+    cands[nc++] = {topk_tensor<KPL, Q2, false>,
+                   smem_bytes(KPL, Q2, a.d, true, false)};
+    cands[nc++] = {topk_tensor<KPL, 1, false>,
+                   smem_bytes(KPL, 1, a.d, true, false)};
+  } else {
+    const int bytes2 = smem_bytes(KPL, Q2, a.d, false, false);
+    const int bytes1 = smem_bytes(KPL, 1, a.d, false, false);
+    if (a.metric == 1) {
+      cands[nc++] = {topk_small<KPL, Q2, 6>, bytes2};
+      cands[nc++] = {topk_small<KPL, 1, 6>, bytes1};
+    } else if (a.d == 3) {
+      cands[nc++] = {topk_small<KPL, Q2, 3>, bytes2};
+      cands[nc++] = {topk_small<KPL, 1, 3>, bytes1};
+    } else {
+      cands[nc++] = {topk_small<KPL, Q2, 8>, bytes2};
+      cands[nc++] = {topk_small<KPL, 1, 8>, bytes1};
     }
   }
-  __syncthreads();
-
-  for (int rr = 0; rr < RB / 8; ++rr) {
-    const int r = warp * (RB / 8) + rr;
-    if (r0 + r >= m) break;
-    const size_t o = ((size_t)b * m + r0 + r) * k;
-    for (int pos = lane; pos < k; pos += 32) {
-      const float v = lv[r * KMAX + pos];
-      out_d[o + pos] = largest ? -v : v;
-      out_i[o + pos] = li[r * KMAX + pos];
+  Variant best = {nullptr, 0};
+  int best_blocks = 0;
+  for (int i = 0; i < nc; ++i) {
+    if (cands[i].bytes > SMEM_MAX) continue;
+    err = cudaFuncSetAttribute(
+        cands[i].kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cands[i].bytes);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, cands[i].kernel, THREADS, cands[i].bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks > best_blocks) {
+      best = cands[i];
+      best_blocks = blocks;
     }
   }
+  if (!best.kernel) return (int)cudaErrorInvalidConfiguration;
+  // a cluster splits the columns, 2 or 4 ways, while the blocks still fit
+  // the card at once (157 row blocks of one 10000-row shape split in 2 at
+  // four blocks an SM)
+  const int row_blocks = batch * ((a.m + RB - 1) / RB);
+  a.split = 1;
+  while (a.split < MAX_SPLIT &&
+         row_blocks * a.split * 2 <= sms * best_blocks)
+    a.split *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_blocks / batch * a.split, batch);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = best.bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, best.kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -219,18 +714,43 @@ topk_kernel(const float* __restrict__ q, const float* __restrict__ p,
 // q: (B, M, D) with batch stride q_bstride elements; p: (B, N, D) with batch
 // stride p_bstride (0 shares one point set); metric 0 = sqdist,
 // 1 = points_normals (D >= 6). out_d: (B, M, k) float32, out_i: (B, M, k)
-// int32.
+// int32. norms: scratch of B*M + B*N floats (B*M + N when p is shared),
+// written and read by the tensor-core path only.
 extern "C" int sednet_topk(const void* q, const void* p, long long q_bstride,
                            long long p_bstride, int batch, int m, int n,
                            int d, int k, int metric, float w, int largest,
-                           void* out_d, void* out_i, void* stream) {
-  const int bytes = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((m + RB - 1) / RB, batch);
-  topk_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)p, q_bstride, p_bstride, m, n, d, k,
-      metric, w, largest, (float*)out_d, (int*)out_i);
-  return (int)cudaGetLastError();
+                           void* out_d, void* out_i, void* norms,
+                           void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool tensor = metric == 0 && d > SMALL_D;
+  Args a;
+  a.q = (const float*)q;
+  a.p = (const float*)p;
+  a.qn = (const float*)norms;
+  a.pn = a.qn + (size_t)batch * m;
+  a.q_bstride = q_bstride;
+  a.p_bstride = p_bstride;
+  a.pn_bstride = p_bstride ? n : 0;
+  a.m = m;
+  a.n = n;
+  a.d = d;
+  a.k = k;
+  a.metric = metric;
+  a.largest = largest;
+  a.vec = (d & 3) == 0 && sim_tile::aligned16(q) && sim_tile::aligned16(p);
+  a.w = w;
+  a.out_d = (float*)out_d;
+  a.out_i = (int*)out_i;
+  if (tensor) {
+    float* qn = (float*)norms;
+    row_norms<<<(batch * m + 255) / 256, 256, 0, st>>>(a.q, batch * m, d, qn);
+    const int pr = p_bstride ? batch * n : n;
+    row_norms<<<(pr + 255) / 256, 256, 0, st>>>(a.p, pr, d,
+                                                qn + (size_t)batch * m);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (k <= 32) return launch<1>(a, batch, tensor, st);
+  if (k <= 64) return launch<2>(a, batch, tensor, st);
+  return launch<4>(a, batch, tensor, st);
 }

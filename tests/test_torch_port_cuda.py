@@ -42,28 +42,63 @@ def cuda():
     return torch.device("cuda")
 
 
+def _topk_holds(q, p, k, metric="sqdist", largest=False):
+    """Launch K1 once and hold it to compare_with_plain (tolerances and the
+    near-tie rule there); returns (idx, dist)."""
+    before = flash_topk.launches
+    idx, dist = flash_topk(q, p, k, metric=metric, largest=largest,
+                           return_distances=True)
+    torch.cuda.synchronize()
+    assert flash_topk.launches == before + 1
+    assert idx.shape == (*q.shape[:-1], k) and idx.dtype == torch.int64
+    cmp = compare_with_plain(q, p, k, idx, dist, metric=metric,
+                             largest=largest)
+    assert cmp["bad_rows"] == 0 and cmp["max_abs_err"] <= cmp["tol"], cmp
+    assert cmp["nbr_err"] <= cmp["tol"], cmp
+    assert cmp["swapped_rows"] <= 0.01 * cmp["rows"], cmp
+    return idx, dist
+
+
+# d <= 8 and points_normals take the CUDA-core tile, d > 8 the tensor-core
+# one (three-term TF32 split, rows zero-padded to a multiple of 16); k
+# picks the list length (32, 64 or 128).
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric,d,k,largest", [
     ("sqdist", 64, 64, False), ("points_normals", 6, 64, False),
     ("sqdist", 128, 128, False), ("sqdist", 16, 16, True),
-    ("sqdist", 3, 50, True)])
+    ("sqdist", 3, 50, True), ("sqdist", 160, 128, True),
+    ("sqdist", 256, 1, False), ("points_normals", 6, 50, True),
+    ("sqdist", 6, 128, False), ("sqdist", 20, 64, True)])
 def test_flash_topk_kernel_matches_plain(cuda, metric, d, k, largest):
     rng = np.random.RandomState(1)
     x = np.stack([_points_normals(rng, 2000) for _ in range(2)]) \
         if metric == "points_normals" else \
         (rng.randn(2, 2000, d) / np.sqrt(d)).astype(np.float32)
     t = torch.from_numpy(x).to(cuda)
-    before = flash_topk.launches
-    idx, dist = flash_topk(t, t, k, metric=metric, largest=largest,
-                           return_distances=True)
-    torch.cuda.synchronize()
-    assert flash_topk.launches == before + 1
-    # tolerances and the near-tie rule: see compare_with_plain
-    cmp = compare_with_plain(t, t, k, idx, dist, metric=metric,
-                             largest=largest)
-    assert cmp["bad_rows"] == 0 and cmp["max_abs_err"] <= cmp["tol"], cmp
-    assert cmp["nbr_err"] <= cmp["tol"], cmp
-    assert cmp["swapped_rows"] <= 0.01 * cmp["rows"], cmp
+    _topk_holds(t, t, k, metric, largest)
+
+
+# Ragged shapes: rows that leave a block part-full (m = 1, 31, 33, 4097),
+# columns that end inside a 32-column tile, a shared 2-d p under batched
+# q, and one shape of 5000 rows, whose 79 row blocks take the column
+# split over a cluster of 4.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,d,k,largest,shared", [
+    (1, 1, 37, 3, 1, False, False), (2, 31, 1001, 16, 50, True, False),
+    (1, 33, 4099, 64, 64, False, False), (1, 4097, 4097, 160, 128, False,
+                                          False),
+    (3, 31, 777, 256, 128, True, True), (2, 33, 301, 6, 64, False, True),
+    (1, 4097, 1001, 3, 50, True, False), (None, 5000, 5000, 160, 128,
+                                          False, False),
+    (None, 5000, 5000, 3, 50, True, False)])
+def test_flash_topk_kernel_ragged(cuda, b, m, n, d, k, largest, shared):
+    rng = np.random.RandomState(3)
+    lead = () if b is None else (b,)
+    q = (rng.randn(*lead, m, d) / np.sqrt(d)).astype(np.float32)
+    p = q if m == n and not shared else (rng.randn(
+        *(() if shared else lead), n, d) / np.sqrt(d)).astype(np.float32)
+    _topk_holds(torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda),
+                k, largest=largest)
 
 
 # The spectral affinity's 50 farthest on xyz, where CAD clouds hold exact
@@ -78,6 +113,44 @@ def test_flash_topk_kernel_farthest_on_exact_ties(cuda):
     pdist, pidx = topk_plain(xyz, xyz, 50, largest=True)
     assert torch.equal(dist, pdist)
     assert torch.equal(idx.sort(-1).values, pidx.sort(-1).values)
+
+
+# Exact ties, nearest and farthest, on both tiles: small integer
+# coordinates make every distance exact (in the TF32 split too: each hi
+# part is the integer, each lo part 0), so the kernel must return the
+# plain version's indices in the plain version's order, equal distances
+# by the lower index.
+@pytest.mark.cuda
+@pytest.mark.parametrize("largest", [False, True])
+@pytest.mark.parametrize("d,k", [(3, 50), (16, 64), (64, 128)])
+def test_flash_topk_kernel_exact_ties_take_lower_index(cuda, d, k, largest):
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randint(-2, 3, (2, 3001, d)).astype(
+        np.float32)).to(cuda)
+    idx, dist = flash_topk(x, x, k, largest=largest, return_distances=True)
+    pdist, pidx = topk_plain(x, x, k, largest=largest)
+    assert torch.equal(dist, pdist)
+    assert torch.equal(idx, pidx)
+
+
+# The split keeps float32 accuracy: against the same distances in float64,
+# the kernel's returned distances err at most twice as much as the float32
+# plain version's (cuBLAS in true float32).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(64, 64), (160, 128)])
+def test_flash_topk_kernel_keeps_float32_accuracy(cuda, d, k):
+    from sednet_tpu_torch.ops.flash_topk import _dist_at
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(2, 3000, d).astype(np.float32)).to(cuda)
+    idx, dist = flash_topk(x, x, k, return_distances=True)
+    pdist, pidx = topk_plain(x, x, k)
+    x64 = x.double()
+    err = float((dist.double() - _dist_at(x64, x64, idx, "sqdist", 1.0))
+                .abs().max())
+    plain = float((pdist.double() - _dist_at(x64, x64, pidx, "sqdist", 1.0))
+                  .abs().max())
+    assert err <= 2.0 * plain, (err, plain)
 
 
 @pytest.mark.cuda

@@ -273,3 +273,55 @@ def test_tf32_split_step_matches_pallas(rng):
     best_plain, _ = ck.colmax_plain(rows, cols, bias, float("inf"), 1.0)
     np.testing.assert_allclose(best_split.numpy(), best_plain.numpy(),
                                atol=1e-5, rtol=0)
+
+
+def _fmaf_norms(x):
+    """Squared row norms summed channel by channel with a fused multiply-add
+    (each step rounded once to float32), as the kernel's norm pre-pass."""
+    x64 = x.double()
+    acc = torch.zeros(x.shape[0], dtype=torch.float32)
+    for e in range(x.shape[1]):
+        acc = (x64[:, e] * x64[:, e] + acc.double()).float()
+    return acc
+
+
+def _split_topk(q, p, k, terms=3):
+    """K1's tensor-core distance tile emulated on the CPU: q.p by the
+    three-term TF32 split (`_split_mm`), the f32 norms from the pre-pass,
+    d = (|q|^2 + |p|^2) - 2 q.p, then the k smallest by (value, column)."""
+    s = _split_mm(q, p.T, terms)
+    d = (_fmaf_norms(q)[:, None] + _fmaf_norms(p)[None, :]) - 2.0 * s
+    vals, order = torch.sort(d, dim=1, stable=True)
+    return vals[:, :k], order[:, :k]
+
+
+# The numerics of K1's tensor-core tile, on the CPU before any card run:
+# neighbour sets from the split distances equal JAX's Pallas top-k outside
+# near-ties (compare_with_plain's rule) and distances within its tolerance,
+# on layer-2-like rows (d = 64, k = 64) and on unit rows of the enriched
+# width 140 zero-padded to 160 (k = 128, the bandwidth call); a single
+# TF32 pass breaks that tolerance.
+@pytest.mark.parametrize("d,pad,k", [(64, 64, 64), (140, 160, 128)])
+def test_tf32_split_topk_matches_topk_pallas(rng, d, pad, k):
+    n = 300
+    x = (_unit(rng, n, d) if d == 140 else
+         rng.randn(n, d).astype(np.float32))
+    idx_j, dist_j = topk_pallas(jnp.asarray(x), jnp.asarray(x), k,
+                                return_distances=True, interpret=True,
+                                spatial_sort=False, col_halves=1)
+    idx_j, dist_j = np.asarray(idx_j), np.asarray(dist_j)
+    t = torch.from_numpy(x)
+    tp = torch.nn.functional.pad(t, (0, pad - d))
+    dist, idx = _split_topk(tp, tp, k)
+    cmp = compare_with_plain(t, t, k, idx, dist)
+    assert cmp["bad_rows"] == 0, cmp
+    assert max(cmp["max_abs_err"], cmp["nbr_err"]) <= cmp["tol"], cmp
+    dp, _ = topk_plain(t, t, k + 1)
+    near_tie = ((dp[:, k] - dp[:, k - 1]).abs() <= 1e-6 * (cmp["tol"] / 1e-5)
+                ).numpy()
+    same = np.array([set(a) == set(b) for a, b in zip(idx.tolist(),
+                                                       idx_j.tolist())])
+    assert (same | near_tie).all()
+    assert np.abs(dist.numpy() - dist_j).max() <= cmp["tol"]
+    one_pass, _ = _split_topk(tp, tp, k, terms=1)
+    assert np.abs(one_pass.numpy() - dist_j).max() > cmp["tol"]
