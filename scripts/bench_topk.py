@@ -1,6 +1,6 @@
 """Time the exact top-k kernel (K1) at every shape the main paths give it.
 
-    python3 scripts/bench_topk.py [--tag NAME] [--out DIR]
+    python3 scripts/bench_topk.py [--tag NAME] [--out DIR (default build)]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU. Builds the
 checkout's kernels, makes the inputs the way `chip_smoke.py` does (the
@@ -67,7 +67,7 @@ def cases(models, x):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="run")
-    ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--out", default="build")
     ap.add_argument("--time-only", action="store_true")
     args = ap.parse_args()
     import torch
