@@ -13,7 +13,7 @@ graphs, the headline bandwidth (5000, 128), the eval's batched farthest-50
 (8, 10000, 3) and bandwidth (8, 5000, 160), and the per-shape calls of
 `cluster_batch` (5000, 160) and of the spectral affinity (10000, 3).
 The lines also go to `<out>/bench_topk_<tag>.json`. To compare two
-checkouts, run both in one call on one card, in turns. `--time-only` times
+checkouts, run both on one card in one sitting, in turns. `--time-only` times
 the kernel alone (no check, no plain or library call): for copies of the
 kernel with a part taken out, whose results are wrong by design.
 """
