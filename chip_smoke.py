@@ -264,6 +264,59 @@ def _knn_inputs(model, x):
     return x1, x2
 
 
+def k1_headline_cases(model, x, emb):
+    """K1's cases on the headline path, as (name, q, p, k, keyword
+    arguments of `check_topk`): the encoder's three graphs and the
+    bandwidth on shape 0's subsample of the embedding."""
+    import torch
+    from sednet_tpu_torch.predict import HEADLINE
+
+    x1, x2 = _knn_inputs(model, x)
+    gen = torch.Generator().manual_seed(0)
+    sel = torch.randperm(N_POINTS, generator=gen)[:HEADLINE.ms_num_samples]
+    xs = emb[0][sel.to(emb.device)].contiguous()
+    return [("knn layer 1 (points_normals)", x, x, K,
+             {"metric": "points_normals", "library": False}),
+            ("knn layer 2", x1, x1, K, {}),
+            ("knn layer 3", x2, x2, K, {}),
+            ("bandwidth", xs, xs, 128, {})]
+
+
+def eval_subsamples(models, x):
+    """The eval's enriched embeddings and each shape's bandwidth
+    subsample (row indices), as `cluster_batch` draws them."""
+    import torch
+    from sednet_tpu_torch.predict import HEADLINE
+
+    emb_e = enriched_embeddings(models, x, torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(0)
+    return emb_e, [torch.randperm(N_POINTS, generator=gen)[
+        :HEADLINE.ms_num_samples] for _ in range(BATCH)]
+
+
+def k1_eval_cases(x, emb_e, sels):
+    """K1's cases on the eval path, as `k1_headline_cases` gives them: the
+    spectral affinity's 50 farthest on xyz and the bandwidth (k = 128 on
+    the subsamples of the enriched embeddings emb_e, padded as
+    `cluster_batch` pads them), batched and for one shape as
+    `normal_affinity_topk` and `cluster_batch` call them."""
+    import torch
+    from sednet_tpu_torch.ops.cuda_kernels import kernel_width
+
+    emb_p = kernel_width(emb_e)
+    xs = torch.stack([emb_p[i][sels[i].to(emb_p.device)]
+                      for i in range(BATCH)]).contiguous()
+    xyz = x[..., :3].contiguous()
+    far = predict_cfg().spectral_knn
+    wide = f"E={emb_e.shape[-1]} at {emb_p.shape[-1]}"
+    return [(f"spectral {far} farthest ({BATCH} shapes)", xyz, xyz, far,
+             {"largest": True}),
+            (f"bandwidth {wide} ({BATCH} shapes)", xs, xs, 128, {}),
+            (f"bandwidth {wide}, one shape", xs[0], xs[0], 128, {}),
+            (f"spectral {far} farthest, one shape", xyz[0], xyz[0], far,
+             {"largest": True})]
+
+
 def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False):
     """K1 against topk_plain, by `compare_with_plain`: distances, returned
     and to the returned neighbours, within 1e-5 of the rounding scale
@@ -470,21 +523,15 @@ def phase_kernels(model, x, emb):
     from sednet_tpu_torch.ops import cuda_kernels as ck
     from sednet_tpu_torch.predict import HEADLINE
 
-    out = {}
-    x1, x2 = _knn_inputs(model, x)
-    gen = torch.Generator().manual_seed(0)
-    ns = HEADLINE.ms_num_samples
-    sel = torch.randperm(N_POINTS, generator=gen)[:ns].to(emb.device)
-    xs = emb[0][sel].contiguous()
-    out["K1"] = [
-        check_topk("knn layer 1 (points_normals)", x, x, K, "points_normals",
-                   library=False),
-        check_topk("knn layer 2", x1, x1, K),
-        check_topk("knn layer 3", x2, x2, K),
-        check_topk("bandwidth", xs, xs, 128),
-    ]
+    out = {"K1": [check_topk(*case[:4], **case[4])
+                  for case in k1_headline_cases(model, x, emb)]}
 
     # K2 / K2b: one step from the embeddings at each shape's bandwidth
+    gen = torch.Generator().manual_seed(0)
+    ns = HEADLINE.ms_num_samples
+    # the draw of the bandwidth case's subsample, so that the steps below
+    # take the bandwidths they took when it came from this generator
+    torch.randperm(N_POINTS, generator=gen)
     bw = torch.stack([torch.clamp_min(compute_bandwidth(
         emb[i], ns, np.float32(HEADLINE.ms_quantile), generator=gen), 0.003)
         for i in range(BATCH)])
@@ -583,30 +630,15 @@ def phase_kernels_slice2(models, x):
     import numpy as np
     import torch
     from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
-    from sednet_tpu_torch.ops.cuda_kernels import kernel_width
     from sednet_tpu_torch.predict import HEADLINE
 
-    emb_e = enriched_embeddings(models, x, torch.Generator().manual_seed(4))
-    gen = torch.Generator().manual_seed(0)
+    emb_e, sels = eval_subsamples(models, x)
     ns = HEADLINE.ms_num_samples
-    sels = [torch.randperm(N_POINTS, generator=gen)[:ns] for _ in range(BATCH)]
     bw_e = torch.stack([torch.clamp_min(compute_bandwidth(
         emb_e[i], ns, np.float32(HEADLINE.ms_quantile), sel=sels[i]), 0.003)
         for i in range(BATCH)])
-    emb_p = kernel_width(emb_e)
-    xs = torch.stack([emb_p[i][sels[i].to(emb_p.device)]
-                      for i in range(BATCH)]).contiguous()
-    xyz = x[..., :3].contiguous()
-    far = predict_cfg().spectral_knn
-    wide = f"E={emb_e.shape[-1]} at {emb_p.shape[-1]}"
-    # the batched calls, then one shape as cluster_batch (bandwidth) and
-    # normal_affinity_topk (farthest) call it
-    k1 = [check_topk(f"spectral {far} farthest ({BATCH} shapes)", xyz, xyz,
-                     far, largest=True),
-          check_topk(f"bandwidth {wide} ({BATCH} shapes)", xs, xs, 128),
-          check_topk(f"bandwidth {wide}, one shape", xs[0], xs[0], 128),
-          check_topk(f"spectral {far} farthest, one shape", xyz[0], xyz[0],
-                     far, largest=True)]
+    k1 = [check_topk(*case[:4], **case[4])
+          for case in k1_eval_cases(x, emb_e, sels)]
     k2b_e, k3_e = _check_wide(emb_e, bw_e)
     out = {"K1": k1, "K2b": [k2b_e], "K3": [k3_e],
            "K4": [check_fused(name, g, a, K, metric) for name, g, a, metric

@@ -3,19 +3,12 @@
     python3 scripts/bench_topk.py [--tag NAME] [--out DIR (default build)]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU. Builds the
-checkout's kernels, makes the inputs the way `chip_smoke.py` does (the
-trained encoder's layer inputs of the 8 x 10000 headline batch, the
-enriched embeddings' bandwidth subsamples, the clouds' xyz), and for each
-case holds K1 against its plain version (`chip_smoke.check_topk`) and
-prints one JSON line with the kernel's, the plain version's and
-`cdist`+`topk`'s times and the bound. The eight cases: the encoder's three
-graphs, the headline bandwidth (5000, 128), the eval's batched farthest-50
-(8, 10000, 3) and bandwidth (8, 5000, 160), and the per-shape calls of
-`cluster_batch` (5000, 160) and of the spectral affinity (10000, 3).
-The lines also go to `<out>/bench_topk_<tag>.json`. To compare two
-checkouts, run both on one card in one sitting, in turns. `--time-only` times
-the kernel alone (no check, no plain or library call): for copies of the
-kernel with a part taken out, whose results are wrong by design.
+checkout's kernels and runs `chip_smoke.check_topk` (K1 held against its
+plain version, with the kernel's, the plain version's and `cdist`+`topk`'s
+times and the bound) on the eight K1 cases of `chip_smoke.py`
+(`k1_headline_cases`, `k1_eval_cases`), one JSON line each; the lines also
+go to `<out>/bench_topk_<tag>.json`. To compare two checkouts, run both on
+one card in one sitting, in turns.
 """
 import argparse
 import json
@@ -26,49 +19,10 @@ import time
 ROOT = os.getcwd()
 
 
-def cases(models, x):
-    """(name, q, p, k, keyword arguments of check_topk) of each case."""
-    import torch
-
-    import chip_smoke as cs
-    from sednet_tpu_torch.ops.cuda_kernels import kernel_width
-    from sednet_tpu_torch.predict import HEADLINE, forward
-
-    x1, x2 = cs._knn_inputs(models["inst"], x)
-    emb = forward(models["inst"], x)[0].contiguous()
-    gen = torch.Generator().manual_seed(0)
-    ns = HEADLINE.ms_num_samples
-    xs = emb[0][torch.randperm(cs.N_POINTS, generator=gen)[:ns].to(
-        emb.device)].contiguous()
-    emb_p = kernel_width(cs.enriched_embeddings(
-        models, x, torch.Generator().manual_seed(4)))
-    gen = torch.Generator().manual_seed(0)
-    sels = [torch.randperm(cs.N_POINTS, generator=gen)[:ns]
-            for _ in range(cs.BATCH)]
-    xe = torch.stack([emb_p[i][sels[i].to(emb_p.device)]
-                      for i in range(cs.BATCH)]).contiguous()
-    xyz = x[..., :3].contiguous()
-    far = cs.predict_cfg().spectral_knn
-    return [
-        ("knn layer 1 (points_normals)", x, x, cs.K,
-         {"metric": "points_normals", "library": False}),
-        ("knn layer 2", x1, x1, cs.K, {}),
-        ("knn layer 3", x2, x2, cs.K, {}),
-        ("bandwidth", xs, xs, 128, {}),
-        (f"spectral {far} farthest ({cs.BATCH} shapes)", xyz, xyz, far,
-         {"largest": True}),
-        (f"bandwidth at {xe.shape[-1]} ({cs.BATCH} shapes)", xe, xe, 128, {}),
-        (f"bandwidth at {xe.shape[-1]}, one shape", xe[0], xe[0], 128, {}),
-        (f"spectral {far} farthest, one shape", xyz[0], xyz[0], far,
-         {"largest": True}),
-    ]
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="run")
     ap.add_argument("--out", default="build")
-    ap.add_argument("--time-only", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -77,7 +31,7 @@ def main():
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from sednet_tpu_torch.ops import _build
-    from sednet_tpu_torch.predict import headline_shapes, load_models
+    from sednet_tpu_torch.predict import forward, headline_shapes, load_models
 
     t0 = time.time()
     _build.lib()
@@ -86,16 +40,13 @@ def main():
     models = load_models(os.path.join(ROOT, "checkpoints", "bench_10k.npz"),
                          device="cuda")
     x = torch.from_numpy(x_np).to("cuda")
+    emb = forward(models["inst"], x)[0].contiguous()
+    emb_e, sels = cs.eval_subsamples(models, x)
     recs = []
-    from sednet_tpu_torch.ops.flash_topk import flash_topk
-    for name, q, p, k, kw in cases(models, x):
-        if args.time_only:
-            kw = {key: v for key, v in kw.items() if key != "library"}
-            rec = {"case": name, "shape": list(q.shape), "k": k, **kw,
-                   "ms": cs.time_ms(lambda: flash_topk(q, p, k, **kw))}
-        else:
-            rec = cs.check_topk(name, q, p, k, **kw)
-        rec = {"tag": args.tag, "card": card, **rec}
+    for name, q, p, k, kw in (cs.k1_headline_cases(models["inst"], x, emb)
+                              + cs.k1_eval_cases(x, emb_e, sels)):
+        rec = {"tag": args.tag, "card": card,
+               **cs.check_topk(name, q, p, k, **kw)}
         print(json.dumps(rec), flush=True)
         recs.append(rec)
     os.makedirs(args.out, exist_ok=True)

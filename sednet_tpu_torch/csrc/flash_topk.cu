@@ -18,8 +18,9 @@
 // 495 TFLOP/s. At widths of 3 and 6 the distances cost almost nothing and
 // the selection is the work: 8e8 candidates for the spectral farthest-50.
 //
-// Design. A block of 8 warps owns 64 query rows of one shape, 8 a warp for
-// the selection, and walks a range of columns 32 at a time.
+// Design. A block of W warps (8, or 6 for one shape of few rows) owns 8 W
+// query rows of one shape, 8 a warp for the selection, and walks a range of
+// columns 32 at a time.
 //   * Selection (knn_select.cuh): each row's best KP >= k pairs sit in
 //     shared memory, ascending by (value, column), beside a queue of QP
 //     candidates (64; 32 where that fits more blocks on an SM, or k <= 32)
@@ -37,30 +38,41 @@
 //   * Distances, sqdist at D > 8: the block's 64 x 32 tile of q.p on the
 //     tensor cores (mma.sync.m16n8k8, three-term TF32 split: every product
 //     exact, short chains added in f32 on the CUDA cores), the norms |q|^2
-//     and |p|^2 in f32 from a pre-pass; rows zero-padded to a multiple of 16
-//     in shared memory, q's split once where there is room. Two warps share
+//     and |p|^2 summed in f32 from the staged rows (fmaf; four partial sums
+//     over the channels c = 0, 1, 2, 3 mod 4, ascending, then (s0 + s1) +
+//     (s2 + s3): the order in which the products' lanes read p); rows
+//     zero-padded to a multiple of 16 in shared memory, q's split once
+//     where there is room. Two warps share
 //     each 16-row m-tile, 16 columns each, write it to their distance tile
-//     and select 8 rows each from it. p tiles land by cp.async in two
-//     stages behind mbarriers, with no block-wide barrier in the walk: a
-//     warp that merges a queue holds back only its m-tile partner, and the
-//     others by at most a tile less than the merge takes.
+//     and select 8 rows each from it. p tiles land by cp.async in 2 to 4
+//     stages (as many as keep the blocks an SM) behind mbarriers, with no
+//     block-wide barrier in the walk: a warp that merges a queue holds back
+//     its m-tile partner, and the others only once it falls as many tiles
+//     behind as the ring runs ahead.
 //   * Distances, D <= 8 and points_normals: each lane holds one column in
 //     registers and computes its warp's 8 rows' distances on the CUDA cores
 //     straight into the ballots; no tile, no barrier.
 //   * Launch: of the compiled variants (queue length; q split once or at
 //     every k-step) the one with the most blocks an SM, since the kernel
-//     waits on latency. Where the row blocks leave room on the card (157
-//     for one 10000-point shape), a cluster of 2 or 4 blocks splits each
-//     row block's columns, as far as they still fit at once, and the
-//     partial lists of a row merge by the (value, column) key through
-//     distributed shared memory, in rank order, with no atomics and no
-//     scratch. Each part refills its own list, so a split that adds a wave
-//     costs more than it gains (5000 rows stay whole).
+//     waits on latency; the choice is made once a device, list length, path
+//     and width. Where blocks of 64 rows run one an SM and leave SMs idle
+//     (one shape of 5000 rows at k = 128: 79 blocks for 132 SMs), blocks of
+//     48 rows (6 warps, 105 blocks) spread the rows over more SMs. Where the
+//     row blocks leave room on the card (157 for one 10000-point shape), a
+//     cluster of 2 or 4 blocks splits each row block's columns, as far as
+//     they still fit at once, and the partial lists of a row merge by the
+//     (value, column) key through distributed shared memory, in rank order,
+//     with no atomics and no scratch. Each part refills its own list, so a
+//     split that adds a wave costs more than it gains.
 // Batched inputs are one launch with the batch on the grid's y axis.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <array>
+#include <map>
+#include <mutex>
 
 #include "knn_select.cuh"
 #include "sim_tile.cuh"
@@ -70,13 +82,10 @@ namespace {
 namespace cg = cooperative_groups;
 using knn_select::NO_COL;
 
-constexpr int RB = 64;        // query rows per block
-constexpr int WARPS = 8;
-constexpr int RW = RB / WARPS;   // rows a warp selects
-constexpr int THREADS = 32 * WARPS;
+constexpr int RW = 8;         // rows a warp selects (a block: 8 W rows)
+constexpr int WARPS = 8;      // warps of a block (6 where `launch` says)
 constexpr int CB = 32;        // columns per tile
-constexpr int MT = RB / 16;   // m-tiles of the tensor path
-constexpr int WPM = WARPS / MT;  // warps an m-tile
+constexpr int WPM = 2;        // warps an m-tile of 16 rows (tensor path)
 constexpr int CW = CB / WPM;  // columns a warp computes of a tile
 constexpr int NT = CW / 8;    // its 8-column n-tiles
 constexpr int KC = 2;         // k-steps summed in one fresh fragment
@@ -84,15 +93,15 @@ constexpr int WS = CB + 1;    // row stride of a distance tile
 constexpr int SMALL_D = 8;    // widest sqdist row of the CUDA-core path
 constexpr int QS = 12;        // row stride of q there: 8 channels, |q|^2, pad
 constexpr int MAX_SPLIT = 4;  // blocks of a cluster
+constexpr int MAX_STAGES = 4; // p-tile stages of the tensor path
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const float* q;
   const float* p;
-  const float* qn;      // |q|^2 (sqdist on the tensor cores)
-  const float* pn;      // |p|^2
-  long long q_bstride, p_bstride, pn_bstride;
+  long long q_bstride, p_bstride;
   int m, n, d, k, metric, largest, split;
+  int stages;           // p-tile stages of the tensor path
   int vec;              // 16-byte copies: D % 4 == 0 and q, p aligned
   float w;
   float* out_d;
@@ -119,16 +128,16 @@ struct Select {
   int* qlen;
 };
 
-__host__ __device__ constexpr int select_bytes(int kpl, int qpl) {
-  return RB * 32 * (kpl + qpl) * 8 + RB * 8;
+__host__ __device__ constexpr int select_bytes(int rb, int kpl, int qpl) {
+  return rb * 32 * (kpl + qpl) * 8 + rb * 8;
 }
 
-// Empty lists (the caller syncs before use); returns the state and, in
-// `rest`, the shared memory after it.
-template <int KPL, int QPL>
+// Empty lists of a block of W warps (the caller syncs before use); returns
+// the state and, in `rest`, the shared memory after it.
+template <int W, int KPL, int QPL>
 __device__ __forceinline__ Select init_select(unsigned char* smem,
                                               float*& rest) {
-  constexpr int KP = 32 * KPL, QP = 32 * QPL;
+  constexpr int KP = 32 * KPL, QP = 32 * QPL, RB = RW * W;
   Select s;
   s.lv = (float*)smem;
   s.li = (int*)(s.lv + RB * KP);
@@ -137,11 +146,11 @@ __device__ __forceinline__ Select init_select(unsigned char* smem,
   s.thr = (float*)(s.qi + RB * QP);
   s.qlen = (int*)(s.thr + RB);
   rest = (float*)(s.qlen + RB);
-  for (int i = threadIdx.x; i < RB * KP; i += THREADS) {
+  for (int i = threadIdx.x; i < RB * KP; i += 32 * W) {
     s.lv[i] = CUDART_INF_F;
     s.li[i] = NO_COL;
   }
-  for (int i = threadIdx.x; i < RB; i += THREADS) {
+  for (int i = threadIdx.x; i < RB; i += 32 * W) {
     s.thr[i] = CUDART_INF_F;
     s.qlen[i] = 0;
   }
@@ -246,15 +255,15 @@ __device__ __forceinline__ void flush_all(const Select& s, int rb, int rows,
 
 // Merge the cluster's partial lists of each row and write the first k.
 // Block `part` finishes rows [part, part + 1) * RB / split.
-template <int KPL>
+template <int W, int KPL>
 __device__ void finish(const Args& a, const Select& s, int b, int r0,
                        int part) {
-  constexpr int KP = 32 * KPL;
+  constexpr int KP = 32 * KPL, RB = RW * W;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();   // every block of the cluster has its lists
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = RB / a.split;
-  for (int rr = warp; rr < per; rr += WARPS) {
+  for (int rr = warp; rr < per; rr += W) {
     const int r = part * per + rr;
     if (r0 + r >= a.m) break;
     float v[KPL];
@@ -295,12 +304,13 @@ __device__ void finish(const Args& a, const Select& s, int b, int r0,
 // DC: the channels read, 3 (sqdist on xyz), 6 (points_normals) or 8 (any
 // other sqdist width up to 8, zero-padded).
 template <int KPL, int QPL, int DC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * WARPS)
 topk_small(Args a) {
   constexpr int DN = DC == 6 ? 3 : DC;   // channels of the squared norms
+  constexpr int RB = RW * WARPS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs;   // RB x QS
-  const Select s = init_select<KPL, QPL>(smem, qs);
+  const Select s = init_select<WARPS, KPL, QPL>(smem, qs);
   const int b = blockIdx.y;
   const int part = (int)(blockIdx.x % a.split);
   const int r0 = (int)(blockIdx.x / a.split) * RB;
@@ -309,7 +319,7 @@ topk_small(Args a) {
   const float* pb = a.p + b * a.p_bstride;
   const int dc = min(DC, a.d);
 
-  for (int r = threadIdx.x; r < RB; r += THREADS) {
+  for (int r = threadIdx.x; r < RB; r += 32 * WARPS) {
     float qq = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -367,25 +377,27 @@ topk_small(Args a) {
     select_tile<KPL, QPL>(s, rb, rows, v, c, valid, a.k);
   }
   flush_all<KPL, QPL>(s, rb, rows, a.k);
-  finish<KPL>(a, s, b, r0, part);
+  finish<WARPS, KPL>(a, s, b, r0, part);
 }
 
 // Rows [r0, r0 + rows) of a (n, d) array into shared memory at stride st,
 // zero past d (up to the padded width E) and past n; 16-byte copies when
-// d is a multiple of 4 and the array is aligned, else 4-byte ones.
+// d is a multiple of 4 and the array is aligned, else 4-byte ones; by a
+// block of T threads.
+template <int T>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int r0, int rows, int n, int d,
                                           int E, int st, bool vec) {
   if (vec) {
     const int chunks = E / 4;
-    for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
+    for (int i = threadIdx.x; i < rows * chunks; i += T) {
       const int r = i / chunks, ch = i % chunks;
       const bool ok = r0 + r < n && 4 * ch < d;
       sim_tile::cp_async16(dst + r * st + 4 * ch,
                            src + (ok ? (size_t)(r0 + r) * d + 4 * ch : 0), ok);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * E; i += THREADS) {
+    for (int i = threadIdx.x; i < rows * E; i += T) {
       const int r = i / E, e = i % E;
       const bool ok = r0 + r < n && e < d;
       const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst + r * st + e);
@@ -396,24 +408,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ void load_norms(float* dst, const float* src,
-                                           int r0, int rows, int n) {
-  for (int i = threadIdx.x; i < rows; i += THREADS) {
-    const bool ok = r0 + i < n;
-    const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst + i);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 :: "r"(sa), "l"(src + (ok ? r0 + i : 0)), "r"(ok ? 4 : 0)
-                 : "memory");
-  }
-}
-
 __host__ __device__ inline int padded_width(int d) {
   return (d + 15) / 16 * 16;
 }
 
 // mbarriers of the tensor path's p-tile stages: "full" completes when every
 // thread's copies of a tile have landed (cp.async.mbarrier.arrive.noinc,
-// THREADS arrivals), "empty" when every warp has read it (WARPS arrivals).
+// one arrival a thread), "empty" when every warp has read it (one a warp).
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -449,35 +450,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// Shared memory of a block: the selection state, then the path's tiles
-// (with `pre`, q's rows twice: their TF32 hi and lo parts).
-__host__ inline int smem_bytes(int kpl, int qpl, int d, bool tensor,
-                               bool pre) {
-  if (!tensor) return select_bytes(kpl, qpl) + RB * QS * 4;
+// Shared memory of a block of rb rows: the selection state, then the
+// path's tiles (with `pre`, q's rows twice: their TF32 hi and lo parts; ns
+// stages of p tiles).
+__host__ inline int smem_bytes(int rb, int kpl, int qpl, int d, bool tensor,
+                               bool pre, int ns) {
+  if (!tensor) return select_bytes(rb, kpl, qpl) + rb * QS * 4;
   const int st = padded_width(d) + 4;
-  return select_bytes(kpl, qpl) + 4 * 8 +
-         ((pre ? 2 : 1) * RB * st + 2 * CB * st + RB + 2 * CB + RB * WS) * 4;
+  return select_bytes(rb, kpl, qpl) + 2 * MAX_STAGES * 8 +
+         ((pre ? 2 : 1) * rb * st + ns * CB * st + rb + rb * WS) * 4;
 }
 
 // sqdist at D > 8: q.p on the tensor cores by the three-term TF32 split.
-// PRE: q's rows are split once, into hi and lo parts side by side in shared
-// memory (where it has room), not at every k-step.
-template <int KPL, int QPL, bool PRE>
-__global__ void __launch_bounds__(THREADS, 2)
+// W warps, RB = 8 W rows in W / 2 m-tiles of 16. PRE: q's rows are split
+// once, into hi and lo parts side by side in shared memory (where it has
+// room), not at every k-step.
+template <int W, int KPL, int QPL, bool PRE>
+__global__ void __launch_bounds__(32 * W, 2)
 topk_tensor(Args a) {
+  constexpr int RB = RW * W, T = 32 * W, MT = W / WPM;
   extern __shared__ __align__(16) unsigned char smem[];
   const int E = padded_width(a.d);
   const int S = E + 4;
   float* rest;
-  const Select s = init_select<KPL, QPL>(smem, rest);
-  uint64_t* full = (uint64_t*)rest;     // 2 stages
-  uint64_t* empty = full + 2;
-  float* qs = (float*)(full + 4);       // RB x S
+  const Select s = init_select<W, KPL, QPL>(smem, rest);
+  const int ns = a.stages;
+  uint64_t* full = (uint64_t*)rest;     // ns stages
+  uint64_t* empty = full + MAX_STAGES;
+  float* qs = (float*)(empty + MAX_STAGES);  // RB x S
   float* qlo = qs + RB * S;             // RB x S with PRE
-  float* ps = qlo + (PRE ? RB * S : 0);  // 2 stages of CB x S
-  float* qq = ps + 2 * CB * S;          // RB
-  float* pp = qq + RB;                  // 2 stages of CB
-  float* dt = pp + 2 * CB;              // RB x WS
+  float* ps = qlo + (PRE ? RB * S : 0);  // ns stages of CB x S
+  float* qq = ps + ns * CB * S;         // RB
+  float* dt = qq + RB;                  // RB x WS
   const int b = blockIdx.y;
   const int part = (int)(blockIdx.x % a.split);
   const int r0 = (int)(blockIdx.x / a.split) * RB;
@@ -485,24 +489,37 @@ topk_tensor(Args a) {
   const int g = lane >> 2, t = lane & 3;
   const float* qb = a.q + b * a.q_bstride;
   const float* pb = a.p + b * a.p_bstride;
-  const float* pnb = a.pn + b * a.pn_bstride;
 
   int c_lo, c_hi;
   column_range(a.n, a.split, part, c_lo, c_hi);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(full + i, THREADS);
-      mbar_init(empty + i, WARPS);
+    for (int i = 0; i < ns; ++i) {
+      mbar_init(full + i, T);
+      mbar_init(empty + i, W);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  load_rows(qs, qb, r0, RB, a.m, a.d, E, S, a.vec);
-  load_norms(qq, a.qn + (size_t)b * a.m, r0, RB, a.m);
+  load_rows<T>(qs, qb, r0, RB, a.m, a.d, E, S, a.vec);
   sim_tile::cp_async_commit();
   sim_tile::cp_async_wait<0>();
   __syncthreads();   // q's rows, the lists and the mbarriers are ready
+  for (int i = 0; i < ns - 1 && c_lo + i * CB < c_hi; ++i) {
+    load_rows<T>(ps + i * CB * S, pb, c_lo + i * CB, CB, c_hi, a.d, E, S,
+                 a.vec);
+    mbar_arrive_copies(full + i);
+  }
+  // |q|^2 in the order in which the tile's lanes sum |p|^2 below
+  for (int r = threadIdx.x; r < RB; r += T) {
+    float part4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int e = 0; e < E; e += 4)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        part4[c] = fmaf(qs[r * S + e + c], qs[r * S + e + c], part4[c]);
+    qq[r] = (part4[0] + part4[1]) + (part4[2] + part4[3]);
+  }
+  __syncthreads();
   if (PRE) {
-    for (int i = threadIdx.x; i < RB * S; i += THREADS) {
+    for (int i = threadIdx.x; i < RB * S; i += T) {
       uint32_t hi, lo;
       sim_tile::split(qs[i], hi, lo);
       qs[i] = __uint_as_float(hi);
@@ -510,12 +527,9 @@ topk_tensor(Args a) {
     }
     __syncthreads();
   }
-  load_rows(ps, pb, c_lo, CB, c_hi, a.d, E, S, a.vec);
-  load_norms(pp, pnb, c_lo, CB, c_hi);
-  mbar_arrive_copies(full);
 
-  // warps mt, mt + MT, .. share m-tile mt (rows 16 mt ..): columns CW h ..
-  // of each tile for the products, rows 16 mt + RW h .. for the selection
+  // warps mt, mt + MT share m-tile mt (rows 16 mt ..): columns CW h .. of
+  // each tile for the products, rows 16 mt + RW h .. for the selection
   const int mt = warp % MT, h = warp / MT;
   const float* arow = qs + 16 * mt * S;
   const float* arow_lo = qlo + 16 * mt * S;
@@ -523,20 +537,24 @@ topk_tensor(Args a) {
   const int rb = 16 * mt + RW * h;
   const int rows = min(RW, max(0, a.m - r0 - rb));
   // No block-wide barrier in the walk: a warp waits for a tile to land
-  // (full) and, before it refills a stage, for every warp to have read the
-  // tile there (empty), which each does before its selection; so a warp
-  // merging a queue delays the others by up to a tile less than it takes.
-  for (int c0 = c_lo, it = 0; c0 < c_hi; c0 += CB, ++it) {
-    const int stage = it & 1;
-    mbar_wait(full + stage, (it >> 1) & 1);
+  // (full) and, before it refills a stage with the tile ns - 1 ahead, for
+  // every warp to have read the tile there (empty), which each does before
+  // its selection; so a warp merging a queue delays the others only once
+  // it falls ns - 1 tiles behind.
+  for (int c0 = c_lo, it = 0, stage = 0, phase = 0; c0 < c_hi;
+       c0 += CB, ++it) {
+    mbar_wait(full + stage, phase);
     const float* cols = ps + stage * CB * S + CW * h * S;
-    const float* ppt = pp + stage * CB + CW * h;
 
-    float sim[NT][4];
+    // sim: q.p; pn[j]: this lane's part of |p|^2 of column 8 j + g, over
+    // the channels t, t + 4, t + 8, .. (the ones its B fragments hold)
+    float sim[NT][4], pn[NT];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j) {
+      pn[j] = 0.f;
 #pragma unroll
       for (int v = 0; v < 4; ++v) sim[j][v] = 0.f;
+    }
 #pragma unroll 4
     for (int k0 = 0; k0 < E / 8; k0 += KC) {
       float lohi[NT][4], hilo[NT][4], hihi[NT][4];
@@ -564,9 +582,11 @@ topk_tensor(Args a) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const float* bp = cols + (8 * j + g) * S + 8 * kk + t;
+          const float b0 = bp[0], b1 = bp[4];
+          pn[j] = fmaf(b1, b1, fmaf(b0, b0, pn[j]));
           uint32_t bhi[2], blo[2];
-          sim_tile::split(bp[0], bhi[0], blo[0]);
-          sim_tile::split(bp[4], bhi[1], blo[1]);
+          sim_tile::split(b0, bhi[0], blo[0]);
+          sim_tile::split(b1, bhi[1], blo[1]);
           sim_tile::mma(lohi[j], alo, bhi);
           sim_tile::mma(hilo[j], ahi, blo);
           sim_tile::mma(hihi[j], ahi, bhi);
@@ -578,25 +598,41 @@ topk_tensor(Args a) {
         for (int v = 0; v < 4; ++v)
           sim[j][v] += (lohi[j][v] + hilo[j][v]) + hihi[j][v];
     }
+    // (s0 + s1) + (s2 + s3) in each lane of group g, as for |q|^2
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      pn[j] += __shfl_xor_sync(FULL, pn[j], 1);
+      pn[j] += __shfl_xor_sync(FULL, pn[j], 2);
+    }
     // the m-tile's warps are done with the last tile's distances
     asm volatile("bar.sync %0, %1;" :: "r"(1 + mt), "r"(32 * WPM) : "memory");
-    // C fragment v of n-tile j: row g + 8 (v / 2), column 8 j + 2 t + v % 2
+    // C fragment v of n-tile j: row g + 8 (v / 2), column 8 j + 2 t + v % 2,
+    // whose |p|^2 lane 4 (2 t + v % 2) holds
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j) {
+      const float pc[2] = {__shfl_sync(FULL, pn[j], 8 * t),
+                           __shfl_sync(FULL, pn[j], 8 * t + 4)};
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
         const int r = g + 8 * (v >> 1), c = 8 * j + 2 * t + (v & 1);
-        const float dv = qq[16 * mt + r] + ppt[c] - 2.f * sim[j][v];
+        const float dv = qq[16 * mt + r] + pc[v & 1] - 2.f * sim[j][v];
         mtile[r * WS + CW * h + c] = a.largest ? -dv : dv;
       }
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + stage);   // this warp read the stage
-    if (c0 + CB < c_hi) {   // refill the other stage, read by every warp
-      if (it > 0) mbar_wait(empty + (stage ^ 1), ((it - 1) >> 1) & 1);
-      load_rows(ps + (stage ^ 1) * CB * S, pb, c0 + CB, CB, c_hi, a.d, E, S,
-                a.vec);
-      load_norms(pp + (stage ^ 1) * CB, pnb, c0 + CB, CB, c_hi);
-      mbar_arrive_copies(full + (stage ^ 1));
+    // refill the stage of tile it - 1 with tile it + ns - 1, once every
+    // warp has read it
+    const int rs = stage ? stage - 1 : ns - 1;
+    if (c0 + (ns - 1) * CB < c_hi) {
+      if (it > 0) mbar_wait(empty + rs, stage ? phase : phase ^ 1);
+      load_rows<T>(ps + rs * CB * S, pb, c0 + (ns - 1) * CB, CB, c_hi, a.d,
+                   E, S, a.vec);
+      mbar_arrive_copies(full + rs);
+    }
+    if (++stage == ns) {
+      stage = 0;
+      phase ^= 1;
     }
     // the m-tile's warps have all written it (named barrier 1 + mt)
     asm volatile("bar.sync %0, %1;" :: "r"(1 + mt), "r"(32 * WPM) : "memory");
@@ -608,94 +644,141 @@ topk_tensor(Args a) {
     select_tile<KPL, QPL>(s, rb, rows, v, c, valid, a.k);
   }
   flush_all<KPL, QPL>(s, rb, rows, a.k);
-  finish<KPL>(a, s, b, r0, part);
-}
-
-// |row|^2 of each row of x (rows of width d), in f32 in channel order.
-__global__ void row_norms(const float* __restrict__ x, int rows, int d,
-                          float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float* xr = x + (size_t)r * d;
-  float acc = 0.f;
-  for (int e = 0; e < d; ++e) acc = fmaf(xr[e], xr[e], acc);
-  out[r] = acc;
+  finish<W, KPL>(a, s, b, r0, part);
 }
 
 constexpr int SMEM_MAX = 232448;   // a block's shared memory on sm_90
 
-// The kernel of a path, a queue length and (tensor path) whether q is
-// split once, with its shared memory; tried in this order, the first with
-// the most blocks an SM wins (the kernel waits on latency, so occupancy
-// comes first).
+// A compiled kernel of a path: its warps, queue length (32 qpl) and
+// whether it splits q once.
 struct Variant {
   void (*kernel)(Args);
-  int bytes;
+  int warps, qpl;
+  bool pre;
 };
+
+// The variants of a path for lists of 32 KPL, in the order tried: queue
+// length 64 before 32 and, on the tensor path, q split once before at
+// every k-step. kind: 0 tensor path (W warps, padded width E), 1
+// points_normals, 2 sqdist at D = 3, 3 other sqdist at D <= 8 (these three
+// with WARPS warps).
+template <int KPL, int W>
+int variants(int kind, Variant* c) {
+  constexpr int Q2 = KPL < 2 ? KPL : 2;   // 64-entry queues where k > 32
+  if (kind == 0) {
+    c[0] = {topk_tensor<W, KPL, Q2, true>, W, Q2, true};
+    c[1] = {topk_tensor<W, KPL, 1, true>, W, 1, true};
+    c[2] = {topk_tensor<W, KPL, Q2, false>, W, Q2, false};
+    c[3] = {topk_tensor<W, KPL, 1, false>, W, 1, false};
+    return 4;
+  }
+  if (kind == 1) {
+    c[0] = {topk_small<KPL, Q2, 6>, WARPS, Q2, false};
+    c[1] = {topk_small<KPL, 1, 6>, WARPS, 1, false};
+  } else if (kind == 2) {
+    c[0] = {topk_small<KPL, Q2, 3>, WARPS, Q2, false};
+    c[1] = {topk_small<KPL, 1, 3>, WARPS, 1, false};
+  } else {
+    c[0] = {topk_small<KPL, Q2, 8>, WARPS, Q2, false};
+    c[1] = {topk_small<KPL, 1, 8>, WARPS, 1, false};
+  }
+  return 2;
+}
+
+// The variant with the most blocks an SM (the kernel waits on latency, so
+// occupancy comes first; the first of equals), with as many p-tile stages
+// (tensor path, 2 to MAX_STAGES) as keep its blocks an SM: its shared
+// memory, stages, blocks and the SMs.
+struct Choice {
+  Variant v;
+  int bytes, stages, blocks, sms;
+};
+
+// The choice of a device, list length, path, width and block size, made at
+// its first call (which also sets the kernels' shared-memory limit there)
+// and kept.
+template <int KPL, int W>
+int choose(int dev, int kind, int E, Choice& out) {
+  static std::mutex mu;
+  static std::map<std::array<int, 3>, Choice> made;
+  const std::array<int, 3> key = {dev, kind, E};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = made.find(key);
+  if (it != made.end()) {
+    out = it->second;
+    return 0;
+  }
+  Choice ch = {{nullptr, 0, 0, false}, 0, 0, 0, 0};
+  cudaError_t err =
+      cudaDeviceGetAttribute(&ch.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  Variant c[4];
+  const int nc = variants<KPL, W>(kind, c);
+  for (int i = 0; i < nc; ++i) {
+    // the limit of the function, whatever width it is launched at
+    err = cudaFuncSetAttribute(
+        c[i].kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0, stages = 0;
+    for (int ns = 2; ns <= (kind == 0 ? MAX_STAGES : 2); ++ns) {
+      const int bytes = smem_bytes(RW * W, KPL, c[i].qpl, E, kind == 0,
+                                   c[i].pre, ns);
+      int b = 0;
+      if (bytes > SMEM_MAX) break;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &b, c[i].kernel, 32 * c[i].warps, bytes);
+      if (err != cudaSuccess) return (int)err;
+      if (ns > 2 && b < blocks) break;
+      blocks = b;
+      stages = ns;
+    }
+    if (blocks > ch.blocks) {
+      ch.v = c[i];
+      ch.bytes = smem_bytes(RW * W, KPL, c[i].qpl, E, kind == 0, c[i].pre,
+                            stages);
+      ch.stages = stages;
+      ch.blocks = blocks;
+    }
+  }
+  if (!ch.v.kernel) return (int)cudaErrorInvalidConfiguration;
+  made[key] = ch;
+  out = ch;
+  return 0;
+}
 
 template <int KPL>
 int launch(Args a, int batch, bool tensor, cudaStream_t stream) {
-  constexpr int Q2 = KPL < 2 ? KPL : 2;   // 64-entry queues where k > 32
-  int dev = 0, sms = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  Variant cands[4];
-  int nc = 0;
-  if (tensor) {
-    cands[nc++] = {topk_tensor<KPL, Q2, true>,
-                   smem_bytes(KPL, Q2, a.d, true, true)};
-    cands[nc++] = {topk_tensor<KPL, 1, true>,
-                   smem_bytes(KPL, 1, a.d, true, true)};
-    cands[nc++] = {topk_tensor<KPL, Q2, false>,
-                   smem_bytes(KPL, Q2, a.d, true, false)};
-    cands[nc++] = {topk_tensor<KPL, 1, false>,
-                   smem_bytes(KPL, 1, a.d, true, false)};
-  } else {
-    const int bytes2 = smem_bytes(KPL, Q2, a.d, false, false);
-    const int bytes1 = smem_bytes(KPL, 1, a.d, false, false);
-    if (a.metric == 1) {
-      cands[nc++] = {topk_small<KPL, Q2, 6>, bytes2};
-      cands[nc++] = {topk_small<KPL, 1, 6>, bytes1};
-    } else if (a.d == 3) {
-      cands[nc++] = {topk_small<KPL, Q2, 3>, bytes2};
-      cands[nc++] = {topk_small<KPL, 1, 3>, bytes1};
-    } else {
-      cands[nc++] = {topk_small<KPL, Q2, 8>, bytes2};
-      cands[nc++] = {topk_small<KPL, 1, 8>, bytes1};
-    }
+  const int kind = tensor ? 0 : a.metric == 1 ? 1 : a.d == 3 ? 2 : 3;
+  const int E = tensor ? padded_width(a.d) : 0;
+  Choice ch;
+  int rc = choose<KPL, WARPS>(dev, kind, E, ch);
+  if (rc) return rc;
+  // blocks of 48 rows where those of 64 run one an SM and leave SMs idle,
+  // if they still fit the card at once
+  if (tensor && ch.blocks == 1 &&
+      batch * ((a.m + RW * WARPS - 1) / (RW * WARPS)) < ch.sms) {
+    Choice c6;
+    if ((rc = choose<KPL, 6>(dev, kind, E, c6))) return rc;
+    if (batch * ((a.m + RW * 6 - 1) / (RW * 6)) <= c6.sms * c6.blocks)
+      ch = c6;
   }
-  Variant best = {nullptr, 0};
-  int best_blocks = 0;
-  for (int i = 0; i < nc; ++i) {
-    if (cands[i].bytes > SMEM_MAX) continue;
-    err = cudaFuncSetAttribute(
-        cands[i].kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        cands[i].bytes);
-    if (err != cudaSuccess) return (int)err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, cands[i].kernel, THREADS, cands[i].bytes);
-    if (err != cudaSuccess) return (int)err;
-    if (blocks > best_blocks) {
-      best = cands[i];
-      best_blocks = blocks;
-    }
-  }
-  if (!best.kernel) return (int)cudaErrorInvalidConfiguration;
+  const int rb = RW * ch.v.warps;
+  a.stages = ch.stages;
   // a cluster splits the columns, 2 or 4 ways, while the blocks still fit
   // the card at once (157 row blocks of one 10000-row shape split in 2 at
   // four blocks an SM)
-  const int row_blocks = batch * ((a.m + RB - 1) / RB);
+  const int row_blocks = batch * ((a.m + rb - 1) / rb);
   a.split = 1;
   while (a.split < MAX_SPLIT &&
-         row_blocks * a.split * 2 <= sms * best_blocks)
+         row_blocks * a.split * 2 <= ch.sms * ch.blocks)
     a.split *= 2;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(row_blocks / batch * a.split, batch);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = best.bytes;
+  cfg.blockDim = dim3(32 * ch.v.warps);
+  cfg.dynamicSmemBytes = ch.bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -704,7 +787,7 @@ int launch(Args a, int batch, bool tensor, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, best.kernel, a);
+  err = cudaLaunchKernelEx(&cfg, ch.v.kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -714,23 +797,18 @@ int launch(Args a, int batch, bool tensor, cudaStream_t stream) {
 // q: (B, M, D) with batch stride q_bstride elements; p: (B, N, D) with batch
 // stride p_bstride (0 shares one point set); metric 0 = sqdist,
 // 1 = points_normals (D >= 6). out_d: (B, M, k) float32, out_i: (B, M, k)
-// int32. norms: scratch of B*M + B*N floats (B*M + N when p is shared),
-// written and read by the tensor-core path only.
+// int32.
 extern "C" int sednet_topk(const void* q, const void* p, long long q_bstride,
                            long long p_bstride, int batch, int m, int n,
                            int d, int k, int metric, float w, int largest,
-                           void* out_d, void* out_i, void* norms,
-                           void* stream) {
+                           void* out_d, void* out_i, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool tensor = metric == 0 && d > SMALL_D;
   Args a;
   a.q = (const float*)q;
   a.p = (const float*)p;
-  a.qn = (const float*)norms;
-  a.pn = a.qn + (size_t)batch * m;
   a.q_bstride = q_bstride;
   a.p_bstride = p_bstride;
-  a.pn_bstride = p_bstride ? n : 0;
   a.m = m;
   a.n = n;
   a.d = d;
@@ -741,15 +819,6 @@ extern "C" int sednet_topk(const void* q, const void* p, long long q_bstride,
   a.w = w;
   a.out_d = (float*)out_d;
   a.out_i = (int*)out_i;
-  if (tensor) {
-    float* qn = (float*)norms;
-    row_norms<<<(batch * m + 255) / 256, 256, 0, st>>>(a.q, batch * m, d, qn);
-    const int pr = p_bstride ? batch * n : n;
-    row_norms<<<(pr + 255) / 256, 256, 0, st>>>(a.p, pr, d,
-                                                qn + (size_t)batch * m);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
   if (k <= 32) return launch<1>(a, batch, tensor, st);
   if (k <= 64) return launch<2>(a, batch, tensor, st);
   return launch<4>(a, batch, tensor, st);

@@ -151,14 +151,10 @@ def _launch(q, p, k, metric, w, largest):
         raise ValueError(f"flash_topk: width {d} not supported for {metric}")
     dist = torch.empty((batch, m, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((batch, m, k), dtype=torch.int32, device=q.device)
-    # the squared norms of q's and p's rows, for the tensor-core path
-    norms = torch.empty((batch * m + (n if p.dim() == 2 else batch * n),),
-                        dtype=torch.float32, device=q.device)
     err = _build.lib().sednet_topk(
         q3.data_ptr(), p.data_ptr(), m * d, 0 if p.dim() == 2 else n * d,
         batch, m, n, d, k, METRICS.index(metric), float(w), int(largest),
-        dist.data_ptr(), idx.data_ptr(), norms.data_ptr(),
-        _build.stream_of(q))
+        dist.data_ptr(), idx.data_ptr(), _build.stream_of(q))
     _build.check(err, "flash_topk")
     flash_topk.launches += 1
     if q.dim() == 2:

@@ -80,8 +80,9 @@ def test_flash_topk_kernel_matches_plain(cuda, metric, d, k, largest):
 
 # Ragged shapes: rows that leave a block part-full (m = 1, 31, 33, 4097),
 # columns that end inside a 32-column tile, a shared 2-d p under batched
-# q, and one shape of 5000 rows, whose 79 row blocks take the column
-# split over a cluster of 4.
+# q, and one shape of 5000 rows: at k = 128 and d = 160 in blocks of 48
+# rows (as 4097 rows there), at d = 3 with the column split over a
+# cluster.
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,n,d,k,largest,shared", [
     (1, 1, 37, 3, 1, False, False), (2, 31, 1001, 16, 50, True, False),

@@ -276,18 +276,22 @@ def test_tf32_split_step_matches_pallas(rng):
 
 
 def _fmaf_norms(x):
-    """Squared row norms summed channel by channel with a fused multiply-add
-    (each step rounded once to float32), as the kernel's norm pre-pass."""
+    """Squared row norms as the kernel sums them: four partial sums over the
+    channels c = 0, 1, 2, 3 mod 4, each ascending with a fused multiply-add
+    (each step rounded once to float32), then (s0 + s1) + (s2 + s3)."""
     x64 = x.double()
-    acc = torch.zeros(x.shape[0], dtype=torch.float32)
-    for e in range(x.shape[1]):
-        acc = (x64[:, e] * x64[:, e] + acc.double()).float()
-    return acc
+    parts = []
+    for c in range(4):
+        acc = torch.zeros(x.shape[0], dtype=torch.float32)
+        for e in range(c, x.shape[1], 4):
+            acc = (x64[:, e] * x64[:, e] + acc.double()).float()
+        parts.append(acc)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
 
 
 def _split_topk(q, p, k, terms=3):
     """K1's tensor-core distance tile emulated on the CPU: q.p by the
-    three-term TF32 split (`_split_mm`), the f32 norms from the pre-pass,
+    three-term TF32 split (`_split_mm`), the f32 norms in its order,
     d = (|q|^2 + |p|^2) - 2 q.p, then the k smallest by (value, column)."""
     s = _split_mm(q, p.T, terms)
     d = (_fmaf_norms(q)[:, None] + _fmaf_norms(p)[None, :]) - 2.0 * s
