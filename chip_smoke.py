@@ -23,7 +23,8 @@ is not 0):
              batched and for one shape,
              K2b and K3 on the 140-d HPNet-enriched embeddings of the
              headline batch, K4 at the encoder's three layer shapes (with
-             the time of the index route it replaces: K1 plus K6);
+             the time of the index route it replaces, K1 plus K6, and
+             equal to it bit for bit on every row without a tie);
   predict    the reference-default eval (`predict_shapes`, `bench.py:327`'s
              config: both models, HPNet spectral enrichment, `cluster_batch`
              at E = 140, chamfer-recall metrics) on the same 8 clouds, with
@@ -182,9 +183,8 @@ def bound_ms(flops, nbytes):
 
 
 def split_bound(dot_flops, f32_flops, nbytes):
-    """The bound of K1 at D > 8 and of K2/K2b/K3, whose dot products run on
-    the tensor cores
-    by the three-term TF32 split: the larger of three TF32 products for
+    """The bound of K1 and K4 at D > 8 and of K2/K2b/K3, whose dot products
+    run on the tensor cores by the three-term TF32 split: the larger of three TF32 products for
     each f32 one (3 x dot_flops over the dense TF32 peak) and the bytes
     over the memory rate; beside it, as `bound_f32_ms`, the bound of the
     same work on the f32 CUDA cores (f32_flops over 67 TFLOP/s), the bound
@@ -385,7 +385,12 @@ def check_fused(name, geom, a, k, metric):
     """K4 against fused_edge_reductions_plain by `compare_with_plain`:
     every row outside a near-tie at the k-th distance agrees (same count,
     same maxima, sums within the reassociation bound 1e-5 * k * max|a|),
-    and at most MAX_SWAPPED of all rows disagree."""
+    and at most MAX_SWAPPED of all rows disagree. Every row whose count is
+    k (no column outside its k nearest ties the k-th distance; the others
+    are K4's rescanned, tied rows, counted in `tied_rows`) equals the
+    index route (K1's graph, then K6) bit for bit. Bound: one distance
+    pass, on the tensor cores by the split at D > 8 (`split_bound`, the
+    f32 bound as `bound_f32_ms`), else in f32 on the CUDA cores."""
     import torch
     from sednet_tpu_torch.ops import fused_edgeconv as fe
 
@@ -394,14 +399,27 @@ def check_fused(name, geom, a, k, metric):
     cmp = fe.compare_with_plain(geom, a, k, out, metric=metric)
     if cmp["bad_rows"] or cmp["swapped_rows"] > MAX_SWAPPED * cmp["rows"]:
         raise AssertionError(f"K4 {name}: {cmp}")
+    sm, sq, mx = _nonfused_route(geom, a, k, metric)
+    untied = out[3] == k
+    differ = [w for w, got, want in (("mx", out[0], mx), ("sm", out[1], sm),
+                                     ("sq", out[2], sq))
+              if not torch.equal(got[untied], want[untied])]
+    if differ or int(out[3].min()) < k:
+        raise AssertionError(f"K4 {name}: rows without a tie differ from "
+                             f"the index route in {differ}")
     b, n, d = geom.shape
     c = a.shape[-1]
     flops = b * n * n * (2 * 6 + 7 if metric == "points_normals" else 2 * d + 3)
     flops += 4 * float(out[3].sum()) * c  # max, sum, square, sum per hit
-    bms, by = bound_ms(flops, 4 * (geom.numel() + a.numel() + 3 * b * n * c
-                                   + b * n))
+    nbytes = 4 * (geom.numel() + a.numel() + 3 * b * n * c + b * n)
+    if metric == "sqdist" and d > 8:
+        bound = split_bound(2 * b * n * n * d, flops, nbytes)
+    else:
+        bms, by = bound_ms(flops, nbytes)
+        bound = {"bound_ms": bms, "bound_by": by}
     return {"case": name, "shape": [b, n, d, c], "k": k, "metric": metric,
             **cmp, "mean_count": float(out[3].mean()),
+            "tied_rows": int((~untied).sum()), "index_route_equal": True,
             "ms": time_ms(lambda: fe.fused_edge_reductions(
                 geom, a, k, metric=metric), reps=5),
             "plain_ms": time_ms(lambda: fe.fused_edge_reductions_plain(
@@ -409,7 +427,7 @@ def check_fused(name, geom, a, k, metric):
             "library_ms": None,
             "nonfused_route_ms": time_ms(lambda: _nonfused_route(
                 geom, a, k, metric), reps=5),
-            "bound_ms": bms, "bound_by": by}
+            **bound}
 
 
 def _fused_layer_inputs(model, x):

@@ -146,6 +146,37 @@ def _cap(res: MeanShiftResult, max_clusters: int) -> MeanShiftResult:
                    num_clusters=min(res.num_clusters, max_clusters))
 
 
+def _guarded(x, e, first, attempt, *, num_samples, max_clusters,
+             retry_factor) -> MeanShiftResult:
+    """The guard's retry loop after a first attempt `first` (try 0):
+    attempt(q, i) is try i, at the previous quantile times retry_factor
+    in float32, while more than max_clusters clusters remain, up to
+    _MAX_RETRIES tries after the first. x is the kernel-width input, e its
+    true width."""
+    res, tries = first, 0
+    while res.num_clusters > max_clusters and tries < _MAX_RETRIES:
+        tries += 1
+        res = attempt(np.float32(res.quantile * np.float32(retry_factor)),
+                      tries)
+    m = min(num_samples, x.shape[0])
+    res = replace(res, shifted=res.shifted[:, :e], tries=tries,
+                  capped=res.num_clusters > max_clusters,
+                  bw_capped=int(res.quantile * np.float32(m)) > min(m - 1, 256))
+    return _cap(res, max_clusters) if res.capped else res
+
+
+def _attempts(x, sels, *, num_samples, iterations, tol, generator,
+              bandwidth=None):
+    """attempt(q, i): one mean-shift pass of x at quantile q with the
+    subsample sels[i] (the last repeats)."""
+    def attempt(q, i):
+        return mean_shift(x, num_samples=num_samples, quantile=q,
+                          iterations=iterations, bandwidth=bandwidth,
+                          tol=tol, generator=generator,
+                          sel=sels[min(i, len(sels) - 1)])
+    return attempt
+
+
 def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
                      iterations: int = 50, max_clusters: int = 49,
                      retry_factor: float = 1.2, tol: float = DEFAULT_MS_TOL,
@@ -159,25 +190,12 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
     fixed bandwidth for every attempt."""
     e = x.shape[-1]
     x = kernel_width(x)
-    sels = sel if isinstance(sel, (list, tuple)) else [sel]
-
-    def attempt(q, i):
-        return mean_shift(x, num_samples=num_samples, quantile=q,
-                          iterations=iterations, bandwidth=bandwidth,
-                          tol=tol, generator=generator,
-                          sel=sels[min(i, len(sels) - 1)])
-
-    res = attempt(np.float32(quantile), 0)
-    tries = 0
-    while res.num_clusters > max_clusters and tries < _MAX_RETRIES:
-        tries += 1
-        res = attempt(np.float32(res.quantile * np.float32(retry_factor)),
-                      tries)
-    m = min(num_samples, x.shape[0])
-    res = replace(res, shifted=res.shifted[:, :e], tries=tries,
-                  capped=res.num_clusters > max_clusters,
-                  bw_capped=int(res.quantile * np.float32(m)) > min(m - 1, 256))
-    return _cap(res, max_clusters) if res.capped else res
+    attempt = _attempts(x, sel if isinstance(sel, (list, tuple)) else [sel],
+                        num_samples=num_samples, iterations=iterations,
+                        tol=tol, generator=generator, bandwidth=bandwidth)
+    return _guarded(x, e, attempt(np.float32(quantile), 0), attempt,
+                    num_samples=num_samples, max_clusters=max_clusters,
+                    retry_factor=retry_factor)
 
 
 def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
@@ -191,8 +209,10 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
 
     sels: optional subsample indices per shape, a tensor or a list with
     one per attempt (the first for the batch pass, the rest for the
-    retries, which start at quantile * retry_factor in float32 as the
-    JAX package's guard does).
+    retries). The batch pass is a shape's try 0: its retries start at
+    quantile * retry_factor in float32 and stop after _MAX_RETRIES in all,
+    as the JAX package's per-shape guard counts them from the base
+    quantile.
 
     Returns (labels (B, N) int64, num_clusters (B,) int64, flags) with
     flags {"capped", "bw_capped"} as (B,) bool arrays."""
@@ -210,14 +230,17 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
     capped = np.zeros((b,), bool)
     bw_capped = np.zeros((b,), bool)
     for i in range(b):
-        lab, _, num = nms(shifted[i], x[i], bw_host[i])
+        lab, mask, num = nms(shifted[i], x[i], bw_host[i])
         if num > max_clusters:
-            res = guard_mean_shift(
-                x[i], num_samples=num_samples,
-                quantile=np.float32(quantile) * np.float32(retry_factor),
-                iterations=iterations, max_clusters=max_clusters,
-                retry_factor=retry_factor, tol=tol, generator=generator,
-                sel=sels[i][1:] or None)
+            first = MeanShiftResult(shifted[i], lab, mask, num, bw_host[i],
+                                    np.float32(quantile))
+            attempt = _attempts(x[i], sels[i], num_samples=num_samples,
+                                iterations=iterations, tol=tol,
+                                generator=generator)
+            res = _guarded(x[i], x.shape[-1], first, attempt,
+                           num_samples=num_samples,
+                           max_clusters=max_clusters,
+                           retry_factor=retry_factor)
             lab, num = res.labels, res.num_clusters
             capped[i], bw_capped[i] = res.capped, res.bw_capped
         labels.append(lab)

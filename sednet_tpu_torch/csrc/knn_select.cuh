@@ -1,5 +1,7 @@
 // Warp-wide selection of a row's k best (value, column) pairs, kept in
-// registers: the selection of the exact top-k (flash_topk.cu, K1).
+// registers: the selection of the exact top-k (K1, flash_topk.cu) and of
+// the fused edge-conv reductions (K4, fused_edgeconv.cu), both through the
+// column walk of knn_walk.cuh.
 //
 // A warp holds a row's list of KP = 32 * KPL best pairs, ascending, entry
 // e = 32 * j + lane in register j of that lane. Pairs are ordered
@@ -12,6 +14,8 @@
 //   add_sorted      32 or 64 candidates at once: a bitonic sort of them,
 //                   then a bitonic merge into the list;
 //   merge_reversed  another sorted list of KP (read reversed by the caller).
+// Each returns the least value it pushed out of the list, from which K4
+// learns whether a column outside the k best ties the k-th value.
 // The caller keeps the threshold, the value of the list's k-th pair, and
 // queues a candidate only when it is not above it; the queue joins the
 // list 64 at a time. Once the list is full, a candidate costs one compare
@@ -129,39 +133,62 @@ __device__ __forceinline__ void bitonic_sort(float (&v)[QPL], int (&ix)[QPL]) {
 // Add QP = 32 * QPL candidates ((inf, NO_COL) where there is none), QPL <=
 // KPL: sort them ascending, put them reversed against the list's last QP
 // entries keeping the smaller of each pair (the list stays the KP smallest
-// of both, now bitonic), and merge.
+// of both, now bitonic), and merge. Returns the least value of the pairs
+// this lane dropped (+inf if none): a caller that needs to know whether a
+// dropped pair ties the k-th value takes the warp's min of it; the others
+// ignore it and the compiler drops its arithmetic.
 template <int KPL, int QPL>
-__device__ __forceinline__ void add_sorted(float (&v)[KPL], int (&ix)[KPL],
-                                           float (&cv)[QPL], int (&ci)[QPL]) {
+__device__ __forceinline__ float add_sorted(float (&v)[KPL], int (&ix)[KPL],
+                                            float (&cv)[QPL],
+                                            int (&ci)[QPL]) {
   const int lane = threadIdx.x & 31;
   bitonic_sort(cv, ci);
+  float low = CUDART_INF_F;
 #pragma unroll
   for (int j = 0; j < QPL; ++j) {
     const float rv = __shfl_sync(0xffffffffu, cv[QPL - 1 - j], 31 - lane);
     const int ri = __shfl_sync(0xffffffffu, ci[QPL - 1 - j], 31 - lane);
     const int o = KPL - QPL + j;
     if (lt(rv, ri, v[o], ix[o])) {
+      low = fminf(low, v[o]);
       v[o] = rv;
       ix[o] = ri;
+    } else {
+      low = fminf(low, rv);
     }
   }
   bitonic_merge(v, ix);
+  return low;
 }
 
 // Merge another ascending list of KP whose entry KP - 1 - e this lane has
-// read into (rv[j], ri[j]) for its own entry e = 32 j + lane.
+// read into (rv[j], ri[j]) for its own entry e = 32 j + lane. Returns the
+// least value of the pairs this lane dropped, as add_sorted does.
 template <int KPL>
-__device__ __forceinline__ void merge_reversed(float (&v)[KPL],
-                                               int (&ix)[KPL],
-                                               const float (&rv)[KPL],
-                                               const int (&ri)[KPL]) {
+__device__ __forceinline__ float merge_reversed(float (&v)[KPL],
+                                                int (&ix)[KPL],
+                                                const float (&rv)[KPL],
+                                                const int (&ri)[KPL]) {
+  float low = CUDART_INF_F;
 #pragma unroll
   for (int j = 0; j < KPL; ++j)
     if (lt(rv[j], ri[j], v[j], ix[j])) {
+      low = fminf(low, v[j]);
       v[j] = rv[j];
       ix[j] = ri[j];
+    } else {
+      low = fminf(low, rv[j]);
     }
   bitonic_merge(v, ix);
+  return low;
+}
+
+// The least of a value over the warp, in every lane.
+__device__ __forceinline__ float warp_min(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    x = fminf(x, __shfl_xor_sync(0xffffffffu, x, s));
+  return x;
 }
 
 }  // namespace knn_select

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _I, _P, _P),
     "sednet_colmax": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
     "sednet_fused_edge_reductions": (_P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                     _P, _P, _P, _P, _P, _P),
+                                     _P, _P, _P, _P, _P, _P, _P, _P),
     "sednet_gather_reduce": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "sednet_segsum_sorted": (_P, _P, _I, _L, _I, _P, _P),
 }

@@ -10,8 +10,13 @@ tensor, and `encoder_apply_fused` runs the DGCNN encoder's three edge
 convolutions that way on the same parameters.
 
 A CUDA tensor launches the kernel; a CPU tensor takes
-`fused_edge_reductions_plain`. The TPU wrapper's Morton `spatial_sort` only
-speeds that kernel's tile skip and changes no value; it is not ported.
+`fused_edge_reductions_plain`. The kernel selects each row's k nearest
+columns as K1 does (`flash_topk`, the same walk and distance bits), with a
+flag where a column outside them ties the k-th distance, reduces over the
+k columns as K6 does (`graph.gather_reduce`), and rescans the flagged rows
+for their tied columns; on a row without a tie its output is the index
+route's bit for bit. The TPU wrapper's Morton `spatial_sort` only speeds
+that kernel's tile skip and changes no value; it is not ported.
 """
 from __future__ import annotations
 
@@ -115,16 +120,21 @@ def _launch(geom, a, k, metric, w):
                          f"for {metric}")
     c = a.shape[-1]
     ap = _build.pad_width(a)
+    if ap.data_ptr() % 16:
+        raise ValueError("fused_edge_reductions: a must be 16-byte aligned")
     cp = ap.shape[-1]
     dev = geom.device
-    thresh = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    cols = torch.empty((batch, n, k), dtype=torch.int32, device=dev)
+    kth = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    tie = torch.empty((batch, n), dtype=torch.int32, device=dev)
     mx, sm, sq = (torch.empty((batch, n, cp), dtype=torch.float32, device=dev)
                   for _ in range(3))
     cnt = torch.empty((batch, n), dtype=torch.float32, device=dev)
     err = _build.lib().sednet_fused_edge_reductions(
         geom.data_ptr(), ap.data_ptr(), batch, n, d, cp, k,
-        METRICS.index(metric), float(w), thresh.data_ptr(), mx.data_ptr(),
-        sm.data_ptr(), sq.data_ptr(), cnt.data_ptr(), _build.stream_of(geom))
+        METRICS.index(metric), float(w), cols.data_ptr(), kth.data_ptr(),
+        tie.data_ptr(), mx.data_ptr(), sm.data_ptr(), sq.data_ptr(),
+        cnt.data_ptr(), _build.stream_of(geom))
     _build.check(err, "fused_edge_reductions")
     fused_edge_reductions.launches += 1
     if cp != c:

@@ -155,6 +155,33 @@ def test_cluster_batch_agrees_with_per_shape(rng):
         assert ari(labels[i].numpy(), one.labels.numpy()) >= 0.99
 
 
+# A shape still capped after every retry: three tight blobs of 62, 62 and
+# 76 points, where the bandwidth's k-th neighbour leaves the smaller blobs
+# only at a 17th retry (k = int(0.015 * 1.2^17 * 200) = 66). JAX's CPU
+# route allows 16 retries from the base quantile; cluster_batch's batched
+# pass is try 0 of the same count, so both stop capped at the 16th retry
+# with the same labels, flags and cluster count.
+@pytest.mark.parametrize("max_clusters", [1, 2])
+def test_cluster_batch_retries_as_jax_guard(max_clusters):
+    rng = np.random.RandomState(0)
+    centers = rng.randn(3, 16)
+    lab = np.repeat(np.arange(3), [62, 62, 76])
+    x = centers[lab] + 0.05 * rng.randn(200, 16)
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    want = guard_jax(key, jnp.asarray(x), num_samples=200, quantile=0.015,
+                     iterations=50, max_clusters=max_clusters)
+    assert int(want.tries) == 16 and bool(want.capped)
+    labels, nums, flags = cluster_batch(
+        torch.from_numpy(x)[None], num_samples=200, quantile=0.015,
+        iterations=50, max_clusters=max_clusters,
+        sels=[_jax_sels(key, 200, 200)])
+    np.testing.assert_array_equal(labels[0].numpy(), np.asarray(want.labels))
+    assert int(nums[0]) == int(want.num_clusters)
+    assert bool(flags["capped"][0]) == bool(want.capped)
+    assert bool(flags["bw_capped"][0]) == bool(want.bw_capped)
+
+
 # The whole slice at N=512 on the trained inst weights: the same shapes and
 # the same bandwidth subsamples through both packages' forward + guarded
 # mean-shift. Partitions agree at ARI >= 0.99 (float association in the

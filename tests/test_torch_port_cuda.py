@@ -352,6 +352,140 @@ def test_fused_edge_reductions_kernel_counts_every_tie(cuda):
     torch.testing.assert_close(sq, psq, atol=1e-4, rtol=1e-5)
 
 
+def _fused_holds(g, a, k, metric="sqdist"):
+    """Launch K4 once; hold it to compare_with_plain (tolerances and the
+    near-tie rule there) and, on every row whose count is k (no column
+    outside its k nearest ties the k-th distance), to the index route
+    (K1's graph, then K6) bit for bit. Returns (out, rows with a tie)."""
+    before = fe.fused_edge_reductions.launches
+    out = fe.fused_edge_reductions(g, a, k, metric=metric)
+    torch.cuda.synchronize()
+    assert fe.fused_edge_reductions.launches == before + 1
+    assert out[0].shape == a.shape and out[3].shape == a.shape[:-1]
+    cmp = fe.compare_with_plain(g, a, k, out, metric=metric)
+    assert cmp["bad_rows"] == 0, cmp
+    assert cmp["swapped_rows"] <= 0.01 * cmp["rows"], cmp
+    g3, a3 = (g, a) if g.dim() == 3 else (g[None], a[None])
+    sm, sq, mx = gather_reduce(a3, flash_topk(g3, g3, k, metric=metric))
+    cnt = out[3] if g.dim() == 3 else out[3][None]
+    assert int(cnt.min()) >= k
+    plain = cnt == k
+    for got, want in zip(out[:3], (mx, sm, sq)):
+        got = got if g.dim() == 3 else got[None]
+        assert torch.equal(got[plain], want[plain])
+    return out, int((~plain).sum())
+
+
+def _grid(rng, *shape):
+    """Integer coordinates: distances exact in float32 on either path, so
+    ties at the k-th distance are real."""
+    return rng.randint(-2, 3, shape).astype(np.float32)
+
+
+# K4 at ragged N = 2003 over its list lengths (k = 16, 50, 64, 128), widths
+# (C = 32 .. 256, D = 3 and 6 on the CUDA cores, 64 to 256 on the tensor
+# cores) and batches (1, 2, 8); 2-D calls of one shape take the column
+# split (a cluster of 2 or 4 blocks a row block).
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,c,k,metric", [
+    (1, 3, 32, 16, "sqdist"), (2, 6, 64, 50, "points_normals"),
+    (8, 64, 128, 64, "sqdist"), (2, 128, 256, 128, "sqdist"),
+    (8, 3, 256, 128, "sqdist"), (2, 64, 32, 50, "sqdist"),
+    (None, 64, 64, 64, "sqdist"), (None, 6, 128, 128, "points_normals"),
+    (None, 128, 64, 16, "sqdist"), (2, 256, 64, 64, "sqdist")])
+def test_fused_edge_reductions_kernel_shapes(cuda, b, d, c, k, metric):
+    rng = np.random.RandomState(11)
+    lead = (b,) if b else ()
+    n = 2003
+    geom = (np.stack([_points_normals(rng, n) for _ in range(b or 1)])
+            if metric == "points_normals"
+            else (rng.randn(b or 1, n, d) / np.sqrt(d)).astype(np.float32))
+    g = torch.from_numpy(geom.reshape(*lead, n, d)).to(cuda)
+    a = torch.from_numpy(rng.randn(*lead, n, c).astype(np.float32)).to(cuda)
+    _fused_holds(g, a, k, metric)
+
+
+# Exact ties on both paths, one shape and a batch, a 2-D call with the
+# column split and a list longer than k (k = 50): every row whose set
+# exceeds k is found, and counts and maxima equal the plain version's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,k", [(None, 3, 50), (2, 3, 16),
+                                   (None, 16, 64), (2, 16, 50)])
+def test_fused_edge_reductions_kernel_ties_on_both_paths(cuda, b, d, k):
+    rng = np.random.RandomState(12)
+    lead = (b,) if b else ()
+    g = torch.from_numpy(_grid(rng, *lead, 2003, d)).to(cuda)
+    a = torch.from_numpy(rng.randn(*lead, 2003, 64).astype(np.float32)).to(
+        cuda)
+    mx, sm, sq, cnt = fe.fused_edge_reductions(g, a, k)
+    pmx, psm, psq, pcnt = fe.fused_edge_reductions_plain(g, a, k)
+    assert torch.equal(cnt, pcnt) and int((cnt > k).sum()) > 0
+    assert torch.equal(mx, pmx)
+    tol = 1e-5 * float(pcnt.max()) * float(a.abs().max())
+    torch.testing.assert_close(sm, psm, atol=tol, rtol=0)
+    torch.testing.assert_close(sq, psq, atol=tol * float(a.abs().max()),
+                               rtol=0)
+
+
+# Flagged and unflagged rows in one block of 64 rows: even rows on an
+# integer grid (tied), odd rows off it (no tie); the block rescans its
+# flagged rows and leaves the others as phase 2 wrote them.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16])
+def test_fused_edge_reductions_kernel_mixed_block(cuda, d):
+    rng = np.random.RandomState(13)
+    geom = _grid(rng, 2003, d)
+    geom[1::2] += rng.uniform(0.2, 0.8, (1001, d)).astype(np.float32)
+    g = torch.from_numpy(geom).to(cuda)
+    a = torch.from_numpy(rng.randn(2003, 96).astype(np.float32)).to(cuda)
+    out, tied = _fused_holds(g, a, 32)
+    block = out[3][:64]
+    assert tied > 0 and int((block > 32).sum()) > 0
+    assert int((block == 32).sum()) > 0
+    pcnt = fe.fused_edge_reductions_plain(g, a, 32)[3]
+    assert torch.equal(out[3], pcnt)
+
+
+# A few ties in a float cloud, as the encoder's layers have them (a few
+# rows in 10000): 40 points duplicated elsewhere, so the rows whose k-th
+# neighbour is one of a pair tie it. Blocks with at most 8 such rows sum
+# their tied columns in shared memory, split 8 ways over the columns;
+# their rows hold against the plain version, the others equal the index
+# route bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,k", [(None, 3, 32), (2, 64, 64),
+                                   (8, 6, 64)])
+def test_fused_edge_reductions_kernel_sparse_ties(cuda, b, d, k):
+    rng = np.random.RandomState(14)
+    lead = (b,) if b else ()
+    n = 2003
+    geom = (np.stack([_points_normals(rng, n) for _ in range(b or 1)])
+            if d == 6 else rng.randn(b or 1, n, d).astype(np.float32))
+    for g1 in geom:
+        src = rng.choice(n, 40, replace=False)
+        dst = rng.choice(np.setdiff1d(np.arange(n), src), 40, replace=False)
+        g1[dst] = g1[src]
+    g = torch.from_numpy(geom.reshape(*lead, n, d)).to(cuda)
+    a = torch.from_numpy(rng.randn(*lead, n, 64).astype(np.float32)).to(
+        cuda)
+    metric = "points_normals" if d == 6 else "sqdist"
+    out, tied = _fused_holds(g, a, k, metric)
+    per_block = (out[3].reshape(-1, n) > k).float()
+    per_block = torch.nn.functional.pad(per_block, (0, 2048 - n))
+    per_block = per_block.reshape(per_block.shape[0], -1, 64).sum(-1)
+    assert tied > 0 and int(((per_block > 0) & (per_block <= 8)).sum()) > 0
+    # a tie of two copies of one point is exact in both versions
+    pmx, psm, psq, pcnt = fe.fused_edge_reductions_plain(g, a, k,
+                                                         metric=metric)
+    rows = out[3] > k
+    assert torch.equal(out[3][rows], pcnt[rows])
+    assert torch.equal(out[0][rows], pmx[rows])
+    tol = 1e-5 * float(pcnt.max()) * float(a.abs().max())
+    torch.testing.assert_close(out[1][rows], psm[rows], atol=tol, rtol=0)
+    torch.testing.assert_close(out[2][rows], psq[rows],
+                               atol=tol * float(a.abs().max()), rtol=0)
+
+
 # K6 against its plain version: int64 indices with out-of-range entries
 # (clamped within their shape), N = 2003 not a multiple of the 8 rows of a
 # block, K = 64 and a ragged K = 50. The max is of the same elements, so

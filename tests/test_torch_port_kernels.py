@@ -11,12 +11,15 @@ import pytest
 import torch
 
 from sednet_tpu.ops.flash_topk import topk_pallas
+from sednet_tpu.ops.fused_edgeconv import \
+    fused_edge_reductions as reductions_jax
 from sednet_tpu.ops.knn import knn_indices, knn_indices_points_normals
 from sednet_tpu.ops.pallas_kernels import (colmax_pallas,
                                            mean_shift_step_pallas,
                                            mean_shift_step_pallas_batched)
 from sednet_tpu_torch.ops import _build
 from sednet_tpu_torch.ops import cuda_kernels as ck
+from sednet_tpu_torch.ops import fused_edgeconv as fe
 from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
                                              topk_plain)
 from sednet_tpu_torch.ops.knn import knn_indices as knn_port
@@ -329,3 +332,92 @@ def test_tf32_split_topk_matches_topk_pallas(rng, d, pad, k):
     assert np.abs(dist.numpy() - dist_j).max() <= cmp["tol"]
     one_pass, _ = _split_topk(tp, tp, k, terms=1)
     assert np.abs(one_pass.numpy() - dist_j).max() > cmp["tol"]
+
+
+def _split_fused(geom, a, k):
+    """K4's route at D > 8 emulated on the CPU: the distances of K1's
+    tensor-core tile (`_split_mm`, norms in the kernel's order), each row's
+    list of its k best columns by (value, column), T its k-th value, the
+    tie flag from the (k+1)-th value, the reductions over the list, then,
+    on flagged rows, the columns past the list's last one at d == T.
+    Returns ((mx, sm, sq, cnt), flag)."""
+    d = ((_fmaf_norms(geom)[:, None] + _fmaf_norms(geom)[None, :])
+         - 2.0 * _split_mm(geom, geom.T))
+    vals, order = torch.sort(d, dim=1, stable=True)
+    t = vals[:, k - 1]
+    flag = vals[:, k] == t
+    cols = order[:, :k]
+    g = a[cols]
+    cols_of = torch.arange(d.shape[1])[None, :]
+    extra = ((d == t[:, None]) & (cols_of > cols[:, -1:])
+             & flag[:, None]).to(a.dtype)
+    neg = torch.tensor(float("-inf"))
+    mx = torch.maximum(g.amax(1), torch.where(
+        extra.bool()[..., None], a[None], neg).amax(1))
+    out = (mx, g.sum(1) + extra @ a, (g * g).sum(1) + extra @ (a * a),
+           k + extra.sum(1))
+    return out, flag
+
+
+def _agree_outside_near_ties(geom, a, k, out, want):
+    """compare_with_plain's rule between two results: outside the rows
+    whose plain k-th and (k+1)-th distances lie within 1e-6 of the
+    rounding scale 1 + max|q|^2, counts and maxima equal and sums within
+    1e-5 * k * max|a| (and max|a|^2)."""
+    dp, _ = topk_plain(geom, geom, k + 1)
+    scale = 1.0 + float((geom * geom).sum(-1).max())
+    firm = ((dp[:, k] - dp[:, k - 1]).abs() > 1e-6 * scale).numpy()
+    amax = float(a.abs().max())
+    mx, sm, sq, cnt = (np.asarray(o)[firm] for o in out)
+    wmx, wsm, wsq, wcnt = (np.asarray(w)[firm] for w in want)
+    np.testing.assert_array_equal(cnt, wcnt)
+    np.testing.assert_array_equal(mx, wmx)
+    np.testing.assert_allclose(sm, wsm, rtol=0, atol=1e-5 * k * amax)
+    np.testing.assert_allclose(sq, wsq, rtol=0, atol=1e-5 * k * amax ** 2)
+    return int(firm.sum())
+
+
+# The numerics of K4's route on the CPU, before any card run: the split
+# distances of K1's tile, T, the tie flag and the reductions over the list
+# and the tied columns agree with JAX's Pallas kernel (interpret mode) on
+# every row outside a near-tie at the k-th distance, by compare_with_plain's
+# rule and tolerance (1e-6 of the rounding scale for a near-tie; sums within
+# 1e-5 * k * max|a|, the reassociation bound of about k terms), at a
+# layer-2-like width; random rows leave no tie flagged.
+def test_fused_route_emulation_matches_pallas(rng):
+    n, d, c, k = 256, 64, 64, 16
+    geom = rng.randn(n, d).astype(np.float32)
+    a = rng.randn(n, c).astype(np.float32)
+    want = reductions_jax(jnp.asarray(geom), jnp.asarray(a), k,
+                          interpret=True)
+    gt, at = torch.from_numpy(geom), torch.from_numpy(a)
+    out, flag = _split_fused(gt, at, k)
+    assert not flag.any()
+    assert _agree_outside_near_ties(gt, at, k, out, want) >= n - 2
+    cmp = fe.compare_with_plain(gt[None], at[None], k,
+                                tuple(o[None] for o in out))
+    assert cmp["bad_rows"] == 0, cmp
+
+
+# On an integer grid every distance is an exact integer in float32, under
+# the split as under any summation order: ties at the k-th distance are
+# real, the flag is set on exactly the rows whose set exceeds k, and the
+# result equals JAX's on every row.
+def test_fused_route_emulation_flags_exactly_the_tied_rows(rng):
+    n, d, c, k = 256, 16, 32, 16
+    geom = rng.randint(-2, 3, (n, d)).astype(np.float32)
+    a = rng.randn(n, c).astype(np.float32)
+    want = [np.asarray(w) for w in reductions_jax(
+        jnp.asarray(geom), jnp.asarray(a), k, interpret=True)]
+    gt, at = torch.from_numpy(geom), torch.from_numpy(a)
+    out, flag = _split_fused(gt, at, k)
+    pcnt = fe.fused_edge_reductions_plain(gt, at, k)[3]
+    np.testing.assert_array_equal(flag.numpy(), (pcnt > k).numpy())
+    assert 0 < int(flag.sum()) < n
+    np.testing.assert_array_equal(out[3].numpy(), want[3])
+    np.testing.assert_array_equal(out[0].numpy(), want[0])
+    amax = float(np.abs(a).max())
+    np.testing.assert_allclose(out[1].numpy(), want[1], rtol=0,
+                               atol=1e-5 * float(want[3].max()) * amax)
+    np.testing.assert_allclose(out[2].numpy(), want[2], rtol=0,
+                               atol=1e-5 * float(want[3].max()) * amax ** 2)
