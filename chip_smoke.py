@@ -37,10 +37,15 @@ is not 0):
   predict_fold5drop  the same with the type model's fold5drop votes;
   kernels_slice3  K6 (the gather-reduce of the index-route edge conv) at
              the encoder's three layer shapes on the real tables and graphs,
-             and K5 (the sorted segment sum of the matrix-free A^T v) on the
-             farthest-50 graph of a 32768-point cloud at m = 12 and 36,
-             each against its plain version (K5 also against index_add_,
-             bit-identical across two launches, 0 at empty destinations);
+             along the Morton order of the points and along the identity
+             (the same bits; both timed, with each order's distinct-row
+             fraction, the order's own time and three F.embedding_bag
+             calls as a yardstick), and K5 (the sorted segment sum of the
+             matrix-free A^T v) on the farthest-50 graph of a 32768-point
+             cloud at m = 12 and 36 and on as many entries at one
+             destination, each against its plain version (K5 also against
+             index_add_, bit-identical across two launches, 0 at empty
+             destinations);
   spectral_matfree  the matrix-free LOBPCG (`spectral_eigvecs_matfree`) in
              each of its five A^T v layouts on 2 clouds of 32768 points:
              seconds and K5 launches per solve, each layout's matvec against
@@ -233,6 +238,43 @@ def time_ms(fn, reps=10, warmup=2):
     return times[len(times) // 2]
 
 
+def burst_ms(fn, calls=20):
+    """Device time of one call: `calls` calls back to back between two CUDA
+    events, after one call of warm-up, so that the host's time per call
+    hides behind the device's (time_ms includes it)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernel_ms(fn, calls=10):
+    """The summed device time of the kernels of one call of fn (torch's
+    own kernels, which the profiler sees), over `calls` calls under
+    torch.profiler: what a call costs the device when its host time
+    overlaps other work, as the Morton order's does in the forward."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(ev.self_device_time_total) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
 def phase_build():
     from sednet_tpu_torch.ops import _build
 
@@ -372,17 +414,18 @@ def _tol_trace(step, x, iterations=50, tol=1e-6):
             "last_delta": deltas[-1]}
 
 
-def _nonfused_route(geom, a, k, metric):
+def _nonfused_route(geom, a, k, metric, order=None):
     """The index route of the same reductions, as `edge_conv_factored` runs
     it: K1's graph, then K6's gather-reduce over it."""
     from sednet_tpu_torch.ops.flash_topk import flash_topk
     from sednet_tpu_torch.ops.graph import gather_reduce
 
-    return gather_reduce(a, flash_topk(geom, geom, k, metric=metric))
+    return gather_reduce(a, flash_topk(geom, geom, k, metric=metric), order)
 
 
-def check_fused(name, geom, a, k, metric):
-    """K4 against fused_edge_reductions_plain by `compare_with_plain`:
+def check_fused(name, geom, a, k, metric, order=None):
+    """K4 (its phase 2 along `order`, as the fused encoder runs it) against
+    fused_edge_reductions_plain by `compare_with_plain`:
     every row outside a near-tie at the k-th distance agrees (same count,
     same maxima, sums within the reassociation bound 1e-5 * k * max|a|),
     and at most MAX_SWAPPED of all rows disagree. Every row whose count is
@@ -394,12 +437,12 @@ def check_fused(name, geom, a, k, metric):
     import torch
     from sednet_tpu_torch.ops import fused_edgeconv as fe
 
-    out = fe.fused_edge_reductions(geom, a, k, metric=metric)
+    out = fe.fused_edge_reductions(geom, a, k, metric=metric, order=order)
     torch.cuda.synchronize()
     cmp = fe.compare_with_plain(geom, a, k, out, metric=metric)
     if cmp["bad_rows"] or cmp["swapped_rows"] > MAX_SWAPPED * cmp["rows"]:
         raise AssertionError(f"K4 {name}: {cmp}")
-    sm, sq, mx = _nonfused_route(geom, a, k, metric)
+    sm, sq, mx = _nonfused_route(geom, a, k, metric, order)
     untied = out[3] == k
     differ = [w for w, got, want in (("mx", out[0], mx), ("sm", out[1], sm),
                                      ("sq", out[2], sq))
@@ -421,12 +464,12 @@ def check_fused(name, geom, a, k, metric):
             **cmp, "mean_count": float(out[3].mean()),
             "tied_rows": int((~untied).sum()), "index_route_equal": True,
             "ms": time_ms(lambda: fe.fused_edge_reductions(
-                geom, a, k, metric=metric), reps=5),
+                geom, a, k, metric=metric, order=order), reps=5),
             "plain_ms": time_ms(lambda: fe.fused_edge_reductions_plain(
                 geom, a, k, metric=metric), reps=3, warmup=1),
             "library_ms": None,
             "nonfused_route_ms": time_ms(lambda: _nonfused_route(
-                geom, a, k, metric), reps=5),
+                geom, a, k, metric, order), reps=5),
             **bound}
 
 
@@ -644,10 +687,12 @@ def phase_kernels_slice2(models, x):
     (so that the headline runs where it ran before them): K1 as the
     spectral affinity (the 50 farthest on xyz) and the bandwidth (k = 128
     on the padded enriched subsample) call it, K2b and K3 on the 140-d
-    enriched embeddings, K4 at the encoder's three layers."""
+    enriched embeddings, K4 at the encoder's three layers (with the Morton
+    order of the points that the fused encoder hands it)."""
     import numpy as np
     import torch
     from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
+    from sednet_tpu_torch.ops.graph import locality_order
     from sednet_tpu_torch.predict import HEADLINE
 
     emb_e, sels = eval_subsamples(models, x)
@@ -658,8 +703,10 @@ def phase_kernels_slice2(models, x):
     k1 = [check_topk(*case[:4], **case[4])
           for case in k1_eval_cases(x, emb_e, sels)]
     k2b_e, k3_e = _check_wide(emb_e, bw_e)
+    order = locality_order(x[..., :3].contiguous())  # as the encoder's
     out = {"K1": k1, "K2b": [k2b_e], "K3": [k3_e],
-           "K4": [check_fused(name, g, a, K, metric) for name, g, a, metric
+           "K4": [check_fused(name, g, a, K, metric, order)
+                  for name, g, a, metric
                   in _fused_layer_inputs(models["inst"], x)]}
     emit({"phase": "kernels_slice2", "ok": True, "results": out})
     return out
@@ -836,7 +883,8 @@ def _forward_peaks(fwd, x):
     out = {"forward_peak_gib": _forward_peak_gib(fwd, x),
            "forward_s_k6": min(timed() for _ in range(3))}
     kernel = graph.gather_reduce
-    graph.gather_reduce = graph.gather_reduce_plain
+    graph.gather_reduce = lambda a, idx, order=None: \
+        graph.gather_reduce_plain(a, idx)
     try:
         out["forward_peak_gib_plain_gather"] = _forward_peak_gib(fwd, x)
         out["forward_s_plain_gather"] = min(timed() for _ in range(3))
@@ -1036,17 +1084,43 @@ def phase_predict_all(models, shapes):
     return {name: v[0] for name, v in out.items()}
 
 
-def check_gather_reduce(name, a, idx):
+def distinct_fraction(idx, order, run):
+    """The distinct neighbour rows that a run of `run` consecutive positions
+    of `order` reads, over the run * K rows it reads, averaged over the full
+    runs of every shape: the share of K6's row reads in a block that are
+    not repeats (a count, no time). idx (B, N, K), order (B, N)."""
+    import torch
+
+    b, n, k = idx.shape
+    rows = torch.gather(idx.clamp(0, n - 1), 1,
+                        order.long()[..., None].expand(-1, -1, k))
+    full = n // run * run
+    s = rows[:, :full].reshape(b, n // run, run * k).sort(dim=-1).values
+    distinct = 1 + (s[..., 1:] != s[..., :-1]).sum(-1)
+    return float(distinct.double().mean()) / (run * k)
+
+
+def check_gather_reduce(name, a, idx, order):
     """K6 against gather_reduce_plain on the same table and graph: the max
     exact (the same elements), the sum and the sum of squares within
     1e-5 * K * max|a| (and max|a|^2), the reassociation bound of K terms
-    summed in k order against torch's order."""
+    summed in k order against torch's order. The kernel runs as the encoder
+    runs it, along the Morton order of the points, and gives the same bits
+    along the identity; both are timed (`ms` one call with its host time,
+    `device_ms` calls back to back), with the distinct-row fraction of each
+    order (`distinct_fraction`, at the kernel's run of 32 rows, at 8 and at
+    64) and, as a yardstick, three F.embedding_bag calls (sum of a, sum of
+    a*a, max of a over the flattened table), which are three calls and not
+    one library call for K6's function."""
     import torch
+    import torch.nn.functional as F
     from sednet_tpu_torch.ops.graph import gather_reduce, gather_reduce_plain
 
-    s, sq, mx = gather_reduce(a, idx)
+    s, sq, mx = gather_reduce(a, idx, order)
+    ident = gather_reduce(a, idx)
     ps, psq, pmx = gather_reduce_plain(a, idx)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(u, w) for u, w in zip((s, sq, mx), ident))
     b, n, c = a.shape
     k = idx.shape[-1]
     amax = float(a.abs().max())
@@ -1054,18 +1128,44 @@ def check_gather_reduce(name, a, idx):
             "sum_err": float((s - ps).abs().max()),
             "sq_err": float((sq - psq).abs().max())}
     tol = {"sum_tol": 1e-5 * k * amax, "sq_tol": 1e-5 * k * amax * amax}
-    if (errs["mx_err"] != 0.0 or errs["sum_err"] > tol["sum_tol"]
+    if (not same_bits or errs["mx_err"] != 0.0
+            or errs["sum_err"] > tol["sum_tol"]
             or errs["sq_err"] > tol["sq_tol"]):
-        raise AssertionError(f"K6 {name}: {errs} {tol}")
+        raise AssertionError(f"K6 {name}: {errs} {tol}, same bits under the "
+                             f"Morton order and the identity: {same_bits}")
+    ident_order = torch.arange(n, dtype=torch.int32, device=a.device)
+    ident_order = ident_order.expand(b, -1)
+    frac = {str(r): {"morton": distinct_fraction(idx, order, r),
+                     "identity": distinct_fraction(idx, ident_order, r)}
+            for r in (8, 32, 64)}
+    flat = a.reshape(b * n, c)
+    flat2 = flat * flat
+    bags = (idx.clamp(0, n - 1) + n * torch.arange(
+        b, device=a.device)[:, None, None]).reshape(b * n, k)
+
+    def three_bags():
+        F.embedding_bag(bags, flat, mode="sum")
+        F.embedding_bag(bags, flat2, mode="sum")
+        F.embedding_bag(bags, flat, mode="max")
+
     # add, square, add, max per gathered value; each input read once (the
-    # table, the int64 graph), each output written once
+    # table, the int64 graph, the int32 order), each output written once
     bms, by = bound_ms(4 * b * n * k * c,
-                       4 * a.numel() + 8 * idx.numel() + 3 * 4 * b * n * c)
+                       4 * a.numel() + 8 * idx.numel() + 4 * b * n
+                       + 3 * 4 * b * n * c)
     return {"case": name, "shape": [b, n, k, c], **errs, **tol,
             "max_abs_err": max(errs.values()),
-            "ms": time_ms(lambda: gather_reduce(a, idx)),
+            "morton_identity_same_bits": same_bits,
+            "distinct_fraction": frac,
+            "ms": time_ms(lambda: gather_reduce(a, idx, order), reps=20),
+            "identity_ms": time_ms(lambda: gather_reduce(a, idx), reps=20),
+            "device_ms": burst_ms(lambda: gather_reduce(a, idx, order)),
+            "identity_device_ms": burst_ms(lambda: gather_reduce(a, idx)),
             "plain_ms": time_ms(lambda: gather_reduce_plain(a, idx), reps=5),
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None,
+            "embedding_bag_three_calls_ms": time_ms(three_bags, reps=5),
+            "bound_ms": bms, "bound_by": by,
+            "row_read_bytes": 4 * b * n * k * c}
 
 
 def _sparse_operator(xyz, nrm):
@@ -1080,56 +1180,50 @@ def _sparse_operator(xyz, nrm):
     return idx, coef, _sorted_transpose_layout(idx, coef)
 
 
-def check_segsum(m, idx, coef, layout, gen):
-    """K5 on the sorted layout of one cloud's graph at block width m, on
-    the entries of a random (N, m) block as the "pallas" matvec builds them:
-    against its plain version (the segmented scan) within 1e-5 of each
-    segment's sum of |entries| (both add pairwise, in other orders),
-    against index_add_ of the same entries (atomic adds in any order, up to
-    thousands a destination) within 1e-4 of it; bit-identical across two
-    launches; exactly 0 at every empty destination."""
+def _check_segsum_layout(name, vals_t, dest_s, ends_s, counts, extra=None):
+    """K5 on one sorted layout: against its plain version (the segmented
+    scan) within 1e-5 of each segment's sum of |entries| (both add
+    pairwise, in other orders); bit-identical across two launches; exactly
+    0 at every empty destination; with the times of the kernel, the plain
+    version and torch.segment_reduce beside the bound. `extra` holds what
+    is held against another reference, as a dict of name -> (reference,
+    tolerance relative to the sum of |entries|)."""
     import torch
     from sednet_tpu_torch.ops import cuda_kernels as ck
 
-    src_s, coef_s, dest_s, ends_s = layout
-    n = idx.shape[0]
-    v = torch.randn((n, m), generator=gen).to(DEVICE)
-    vals_t = (coef_s[None, :] * torch.index_select(v.T.contiguous(), 1,
-                                                   src_s)).contiguous()
     got = ck.segsum_sorted_scan(vals_t, dest_s, ends_s)
     again = ck.segsum_sorted_scan(vals_t, dest_s, ends_s)
     want = ck.segsum_sorted_scan_plain(vals_t, dest_s, ends_s)
     scale = ck.segsum_sorted_scan_plain(vals_t.abs(), dest_s, ends_s)
-    scatter = torch.zeros_like(v).index_add_(
-        0, idx.reshape(-1), (coef[..., None] * v[:, None, :]).reshape(-1, m))
-    counts = torch.bincount(idx.reshape(-1), minlength=n)
     torch.cuda.synchronize()
-    rel = {name: float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
-           for name, ref in (("plain", want), ("scatter", scatter))}
+    refs = {"plain": (want, 1e-5), **(extra or {})}
+    rel = {key: float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+           for key, (ref, _) in refs.items()}
     identical = torch.equal(got, again)
     empty_zero = bool((got[counts == 0] == 0).all())
-    if not (identical and empty_zero and rel["plain"] <= 1e-5
-            and rel["scatter"] <= 1e-4):
-        raise AssertionError(f"K5 m={m}: rel {rel}, identical {identical}, "
+    if not (identical and empty_zero
+            and all(rel[key] <= tol for key, (_, tol) in refs.items())):
+        raise AssertionError(f"K5 {name}: rel {rel}, identical {identical}, "
                              f"empty destinations zero {empty_zero}")
-    e = vals_t.shape[1]
+    m, e = vals_t.shape
+    n = ends_s.shape[0]
     vals_e = vals_t.T.contiguous()   # segment_reduce sums along axis 0
     lib = torch.segment_reduce(vals_e, "sum", lengths=counts, axis=0)
     # vals_t, ends and the output: the kernel never reads dest
     bms, by = bound_ms(m * e, 4 * (m * e + n + n * m))
-    return {"case": f"farthest-50 graph of a {n}-point cloud, m={m}",
-            "shape": [m, e, n],
+    return {"case": name, "shape": [m, e, n],
             "nonempty_destinations": int((counts > 0).sum()),
-            "max_in_degree": int(counts.max()),
-            "rel_err_vs_plain": rel["plain"],
-            "rel_err_vs_scatter": rel["scatter"], "tol_plain": 1e-5,
-            "tol_scatter": 1e-4, "bit_identical": identical,
-            "empty_zero": empty_zero,
+            "longest_segment": int(counts.max()),
+            **{f"rel_err_vs_{key}": v for key, v in rel.items()},
+            **{f"tol_{key}": tol for key, (_, tol) in refs.items()},
+            "bit_identical": identical, "empty_zero": empty_zero,
             "max_abs_err": float((got - want).abs().max()),
             "library_rel_err": float(((lib - want).abs()
                                       / scale.clamp_min(1e-30)).max()),
             "ms": time_ms(lambda: ck.segsum_sorted_scan(vals_t, dest_s,
                                                         ends_s)),
+            "device_ms": burst_ms(lambda: ck.segsum_sorted_scan(
+                vals_t, dest_s, ends_s)),
             "plain_ms": time_ms(lambda: ck.segsum_sorted_scan_plain(
                 vals_t, dest_s, ends_s), reps=5),
             "library_ms": time_ms(lambda: torch.segment_reduce(
@@ -1138,21 +1232,82 @@ def check_segsum(m, idx, coef, layout, gen):
             "bound_ms": bms, "bound_by": by}
 
 
+def check_segsum(m, idx, coef, layout, gen):
+    """K5 on the sorted layout of one cloud's graph at block width m, on
+    the entries of a random (N, m) block as the "pallas" matvec builds them
+    (`_check_segsum_layout`), also against index_add_ of the same entries
+    (atomic adds in any order, up to thousands a destination) within 1e-4
+    of the sum of |entries|."""
+    import torch
+
+    src_s, coef_s, dest_s, ends_s = layout
+    n = idx.shape[0]
+    v = torch.randn((n, m), generator=gen).to(DEVICE)
+    vals_t = (coef_s[None, :] * torch.index_select(v.T.contiguous(), 1,
+                                                   src_s)).contiguous()
+    scatter = torch.zeros_like(v).index_add_(
+        0, idx.reshape(-1), (coef[..., None] * v[:, None, :]).reshape(-1, m))
+    counts = torch.bincount(idx.reshape(-1), minlength=n)
+    return _check_segsum_layout(
+        f"farthest-50 graph of a {n}-point cloud, m={m}", vals_t, dest_s,
+        ends_s, counts, {"scatter": (scatter, 1e-4)})
+
+
+def check_segsum_single(m, e, n, gen):
+    """K5 where one destination (the middle one) holds all E entries, the
+    rest empty: the layout that one block a destination served worst.
+    Entries over six decades, as the quirk affinity's coefficients."""
+    import torch
+
+    d = n // 2
+    vals_t = (torch.randn((m, e), generator=gen)
+              * 10.0 ** (6 * torch.rand((1, e), generator=gen) - 3)).to(DEVICE)
+    dest = torch.full((e,), d, dtype=torch.int32, device=DEVICE)
+    counts = torch.zeros(n, dtype=torch.int64, device=DEVICE)
+    counts[d] = e
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    return _check_segsum_layout(
+        f"one destination holding all {e} entries, m={m}",
+        vals_t.contiguous(), dest, ends, counts)
+
+
 def phase_kernels_slice3(models, x, big_x):
     """K6 at the encoder's three layers (the signed table a * sign(scale)
-    that edge_conv_factored gives it, on K1's graph of the layer input) and
-    K5 on one 32768-point cloud's farthest-50 graph at m = 12 and 36."""
+    that edge_conv_factored gives it, on K1's graph of the layer input),
+    along the Morton order of the points as the encoder runs it, with the
+    order's own time beside the three launches; K5 on one 32768-point
+    cloud's farthest-50 graph at m = 12 and 36, and on as many entries all
+    at one destination at m = 36."""
     import torch
     from sednet_tpu_torch.ops.flash_topk import flash_topk
+    from sednet_tpu_torch.ops.graph import locality_order
 
-    k6 = [check_gather_reduce(name, a, flash_topk(g, g, K, metric=metric))
+    xyz = x[..., :3].contiguous()
+    order = locality_order(xyz)
+    k6 = [check_gather_reduce(name, a, flash_topk(g, g, K, metric=metric),
+                              order)
           for name, g, a, metric in _fused_layer_inputs(models["inst"], x)]
+    order_ms = time_ms(lambda: locality_order(xyz), reps=20)
+    order_device_ms = kernel_ms(lambda: locality_order(xyz))
     idx, coef, layout = _sparse_operator(big_x[0, :, :3].contiguous(),
                                          big_x[0, :, 3:6].contiguous())
     gen = torch.Generator().manual_seed(6)
-    out = {"K5": [check_segsum(m, idx, coef, layout, gen) for m in (12, 36)],
-           "K6": k6}
-    emit({"phase": "kernels_slice3", "ok": True, "results": out})
+    k5 = [check_segsum(m, idx, coef, layout, gen) for m in (12, 36)]
+    k5.append(check_segsum_single(36, layout[2].shape[0], idx.shape[0], gen))
+    out = {"K5": k5, "K6": k6}
+    # what one forward gains from the order on the device: K6's three
+    # launches along the identity, less the same along the Morton order and
+    # the order itself (its host time hides behind K1's device time)
+    forward = {"order_ms": order_ms, "order_device_ms": order_device_ms,
+               "k6_three_layers_morton_device_ms": sum(
+                   c["device_ms"] for c in k6),
+               "k6_three_layers_identity_device_ms": sum(
+                   c["identity_device_ms"] for c in k6)}
+    forward["net_device_gain_ms"] = (
+        forward["k6_three_layers_identity_device_ms"]
+        - forward["k6_three_layers_morton_device_ms"] - order_device_ms)
+    emit({"phase": "kernels_slice3", "ok": True, "results": out,
+          "encoder_forward": forward})
     return out
 
 

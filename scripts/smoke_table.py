@@ -5,8 +5,10 @@
 Each argument is the standard output of one `python3 chip_smoke.py` (for
 example the parent commit's and a change's, run in turns in one call on one
 card). Prints, one column a run: the card, the build and smoke seconds, each
-kernel case's time (K4 also with its index route's time and tied rows), and
-the end-to-end phases' shapes/s and quality figures.
+kernel case's time (K4 also with its index route's time and tied rows; K5
+and K6 with their device time, K6 also along the identity order), the
+Morton order's time, and the end-to-end phases' shapes/s, peak memory and
+quality figures.
 """
 from __future__ import annotations
 
@@ -62,10 +64,16 @@ def main(paths):
                    for r in runs])
     row("smoke s", [r["phases"].get("done", {}).get("seconds") for r in runs])
     krows = [kernel_rows(r) for r in runs]
-    keys = [k for k in krows[0]]
+    keys = list(dict.fromkeys(k for kr in krows for k in kr))
     for key in keys:
         recs = [kr.get(key, {}) for kr in krows]
         row(f"{key[0]} {key[1]} ms", [c.get("ms") for c in recs])
+        if key[0] in ("K5", "K6"):
+            row(f"{key[0]} {key[1]} device ms",
+                [c.get("device_ms") for c in recs])
+        if key[0] == "K6":
+            row(f"{key[0]} {key[1]} identity order ms",
+                [c.get("identity_ms") for c in recs])
         if key[0] == "K4":
             row(f"{key[0]} {key[1]} index route ms",
                 [c.get("nonfused_route_ms") for c in recs])
@@ -73,10 +81,17 @@ def main(paths):
                 [c.get("tied_rows") for c in recs])
             row(f"{key[0]} {key[1]} bound ms",
                 [c.get("bound_ms") for c in recs])
+    fwd = [r["phases"].get("kernels_slice3", {}).get("encoder_forward", {})
+           for r in runs]
+    row("Morton order ms (8 x 10000)", [f.get("order_ms") for f in fwd])
+    row("Morton order device ms", [f.get("order_device_ms") for f in fwd])
+    row("K6 x 3 device ms gained by the order, net",
+        [f.get("net_device_gain_ms") for f in fwd])
     for phase in ("headline", "predict", "predict_fused",
                   "predict_fold5drop", "predict_bigcloud"):
         recs = [r["phases"].get(phase, {}) for r in runs]
         row(f"{phase} shapes/s", [c.get("shapes_per_s") for c in recs])
+        row(f"{phase} peak GiB", [c.get("peak_mem_gib") for c in recs])
         row(f"{phase} inst_iou", [c.get("inst_iou") for c in recs])
         if phase != "headline":
             row(f"{phase} type_iou / recall",

@@ -32,10 +32,12 @@
 //     selection keeps the least value it pushed out of each row's list (one
 //     warp min a merge, in shared memory beside the threshold) and compares
 //     it, with the list's entries past k, to T_i at the end.
-//   phase 2: K6's warp-a-row loop (gather_rows.cuh) over the k columns: the
-//     sum, sum of squares and max of a's rows in list order, count k. On a
-//     row without a tie the result is the index route's (K1's graph, then
-//     K6) bit for bit.
+//   phase 2: K6's warp-a-row loop (gather_rows.cuh) over the k columns, its
+//     blocks on runs of the caller's row order (a Morton curve of the
+//     points, so that L1 serves the repeated rows): the sum, sum of squares
+//     and max of a's rows in list order, count k. On a row without a tie
+//     the result is the index route's (K1's graph, then K6) bit for bit,
+//     whatever the order.
 //   phase 2b: flagged rows rescan every column with the same walk, so the
 //     same distance bits phase 1 compared, and a row action (`Rescan`) that
 //     adds each column with d == T_i past the list's last column to the
@@ -243,15 +245,16 @@ int select_rows(const Args& g, const SelectOut& o, int batch, bool tensor,
 }  // namespace
 
 // geom: (B, N, D) float32, D <= 256 (>= 6 for points_normals); a: (B, N, C)
-// float32 with C a multiple of 32 up to 256, 16-byte aligned; metric 0 =
-// sqdist, 1 = points_normals; 1 <= k <= min(128, N). Scratch: cols (B, N, k)
-// int32, kth (B, N) float32, tie (B, N) int32. Outputs: mx, sm, sq (B, N, C)
-// float32, cnt (B, N) float32. Three launches on `stream`, no
-// synchronisation.
+// float32 with C a multiple of 32 up to 256, N C < 2^32, 16-byte aligned;
+// metric 0 = sqdist, 1 = points_normals; 1 <= k <= min(128, N); order:
+// (B, N) int32, a permutation of each shape's rows that phase 2 walks, or
+// null for the identity. Scratch: cols (B, N, k) int32, kth (B, N) float32, tie (B, N)
+// int32. Outputs: mx, sm, sq (B, N, C) float32, cnt (B, N) float32. Three
+// launches on `stream`, no synchronisation.
 extern "C" int sednet_fused_edge_reductions(
-    const void* geom, const void* a, int batch, int n, int d, int c, int k,
-    int metric, float w, void* cols, void* kth, void* tie, void* mx,
-    void* sm, void* sq, void* cnt, void* stream) {
+    const void* geom, const void* a, const void* order, int batch, int n,
+    int d, int c, int k, int metric, float w, void* cols, void* kth,
+    void* tie, void* mx, void* sm, void* sq, void* cnt, void* stream) {
   if (batch < 1 || k < 1 || k > KMAX || k > n || c % 32 != 0 || c < 32 ||
       c > CMAX || d < 1 || d > 256 || (metric == 1 && d < 6))
     return (int)cudaErrorInvalidValue;
@@ -273,9 +276,9 @@ extern "C" int sednet_fused_edge_reductions(
            : k <= 64 ? select_rows<2>(g, o, batch, tensor, st)
                      : select_rows<4>(g, o, batch, tensor, st);
   if (rc) return rc;
-  rc = gather_rows::launch<int>((const float*)a, (const int*)cols, batch, n,
-                                c, k, (float*)sm, (float*)sq, (float*)mx,
-                                (float*)cnt, st);
+  rc = gather_rows::launch<int>((const float*)a, (const int*)cols,
+                                (const int*)order, batch, n, c, k, (float*)sm,
+                                (float*)sq, (float*)mx, (float*)cnt, st);
   if (rc) return rc;
   const RescanParams rp = {(const int*)cols, (const float*)kth,
                            (const int*)tie, (const float*)a, c,

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from sednet_tpu_torch.ops.graph import edge_conv_factored
+from sednet_tpu_torch.ops.graph import edge_conv_factored, locality_order
 from sednet_tpu_torch.ops.knn import knn_indices, knn_indices_points_normals
 
 
@@ -54,10 +54,11 @@ class EdgeConv(nn.Module):
         self.gn = GroupNorm(groups, c_out)
         self.negative_slope = negative_slope
 
-    def forward(self, x, idx):
+    def forward(self, x, idx, order=None):
         return edge_conv_factored(
             x, idx, self.conv.weight, self.gn.weight, self.gn.bias,
-            groups=self.gn.groups, negative_slope=self.negative_slope)
+            groups=self.gn.groups, negative_slope=self.negative_slope,
+            order=order)
 
 
 class DGCNNEncoder(nn.Module):
@@ -78,14 +79,17 @@ class DGCNNEncoder(nn.Module):
         self.gn_mlp1 = GroupNorm(8, 1024)
 
     def forward(self, x, idx1=None):
-        """Returns (global (B, 1024), per-point features (B, N, 256))."""
+        """Returns (global (B, 1024), per-point features (B, N, 256)). One
+        Morton order of the points (`locality_order`) is the row order of
+        the three gather-reduces (kernel K6), changing no value."""
         if idx1 is None:
             idx1 = (knn_indices_points_normals(
                 x, self.k, normal_metric_w=self.normal_metric_w)
                 if self.mode == 5 else knn_indices(x, self.k))
-        x1 = self.conv1(x, idx1)
-        x2 = self.conv2(x1, knn_indices(x1, self.k))
-        x3 = self.conv3(x2, knn_indices(x2, self.k))
+        order = locality_order(x[..., :3])
+        x1 = self.conv1(x, idx1, order)
+        x2 = self.conv2(x1, knn_indices(x1, self.k), order)
+        x3 = self.conv3(x2, knn_indices(x2, self.k), order)
         feats = torch.cat([x1, x2, x3], dim=-1)
         h = F.relu(self.gn_mlp1(self.mlp1(feats)))
         return h.amax(dim=1), feats

@@ -36,10 +36,11 @@ _SIGNATURES = {
     "sednet_topk": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P),
     "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _I, _P, _P),
     "sednet_colmax": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
-    "sednet_fused_edge_reductions": (_P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                     _P, _P, _P, _P, _P, _P, _P, _P),
-    "sednet_gather_reduce": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "sednet_segsum_sorted": (_P, _P, _I, _L, _I, _P, _P),
+    "sednet_fused_edge_reductions": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    "sednet_gather_reduce": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "sednet_segsum_sorted": (_P, _P, _I, _L, _I, _P, _P, _P, _P),
+    "sednet_segsum_chunks": (_L,),
 }
 
 _lib = None
@@ -161,3 +162,11 @@ def require_cuda_f32(name: str, t) -> None:
         raise ValueError(
             f"{name}: expected a contiguous float32 CUDA tensor, got "
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def require_row_offsets(name: str, t) -> None:
+    """Raise unless the rows of one shape of t (..., N, C) are addressed by
+    32-bit offsets, N * C < 2^32, as K6's loop keeps them."""
+    if t.shape[-2] * t.shape[-1] > 0xFFFFFFFF:
+        raise ValueError(f"{name}: {t.shape[-2]} rows of width "
+                         f"{t.shape[-1]} exceed 2^32 elements a shape")

@@ -182,7 +182,10 @@ def segsum_sorted_scan(vals_t, dest, ends):
     (`cluster.spectral._sorted_transpose_layout`). Returns (N, m) float32,
     0 for empty destinations. On CUDA, vals_t must be contiguous float32
     and ends int32; the kernel reads the segment bounds from ends alone and
-    is deterministic (no atomics)."""
+    is deterministic (no float atomics). It splits E into equal chunks and
+    keeps the pieces of the segments that cross a chunk's edges in a
+    scratch of 2 * chunks * m floats and chunks ints (a few hundred KB at
+    E = 1.6M), added in chunk order by a second launch."""
     if vals_t.device.type == "cpu":
         return segsum_sorted_scan_plain(vals_t, dest, ends)
     _build.require_cuda_f32("segsum_sorted_scan vals_t", vals_t)
@@ -194,10 +197,14 @@ def segsum_sorted_scan(vals_t, dest, ends):
                          "(N,) int32 tensor on vals_t's device")
     m, e = vals_t.shape
     n = ends.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=vals_t.device)
+    dev = vals_t.device
+    out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    chunks = _build.lib().sednet_segsum_chunks(e)
+    pieces = torch.empty((2 * chunks * m,), dtype=torch.float32, device=dev)
+    cross = torch.empty((chunks,), dtype=torch.int32, device=dev)
     err = _build.lib().sednet_segsum_sorted(
         vals_t.data_ptr(), ends.data_ptr(), m, e, n, out.data_ptr(),
-        _build.stream_of(vals_t))
+        pieces.data_ptr(), cross.data_ptr(), _build.stream_of(vals_t))
     _build.check(err, "segsum_sorted_scan")
     segsum_sorted_scan.launches += 1
     return out

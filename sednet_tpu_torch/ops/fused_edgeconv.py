@@ -15,8 +15,11 @@ columns as K1 does (`flash_topk`, the same walk and distance bits), with a
 flag where a column outside them ties the k-th distance, reduces over the
 k columns as K6 does (`graph.gather_reduce`), and rescans the flagged rows
 for their tied columns; on a row without a tie its output is the index
-route's bit for bit. The TPU wrapper's Morton `spatial_sort` only speeds
-that kernel's tile skip and changes no value; it is not ported.
+route's bit for bit. The reduction walks the rows along the caller's order
+(`graph.locality_order`, a Morton curve of the points), as K6 does, which
+changes no value. The TPU wrapper's Morton `spatial_sort` of the distance
+walk only speeds that kernel's tile skip and changes no value; it is not
+ported.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from sednet_tpu_torch.ops import _build
 from sednet_tpu_torch.ops.flash_topk import (D_MAX, K_MAX, METRICS,
                                              _dist_plain, topk_plain)
+from sednet_tpu_torch.ops.graph import _check_order, locality_order
 
 
 def fused_edge_reductions_plain(geom, a, k: int, *, metric: str = "sqdist",
@@ -103,7 +107,7 @@ def compare_with_plain(geom, a, k, out, *, metric: str = "sqdist",
             "sum_tol": sum_tol, "sq_tol": sq_tol, "max_abs_err": max(errs)}
 
 
-def _launch(geom, a, k, metric, w):
+def _launch(geom, a, k, metric, w, order):
     _build.require_cuda_f32("fused_edge_reductions geom", geom)
     _build.require_cuda_f32("fused_edge_reductions a", a)
     if geom.device != a.device or geom.dim() != 3 or a.dim() != 3:
@@ -120,6 +124,7 @@ def _launch(geom, a, k, metric, w):
                          f"for {metric}")
     c = a.shape[-1]
     ap = _build.pad_width(a)
+    _build.require_row_offsets("fused_edge_reductions", ap)
     if ap.data_ptr() % 16:
         raise ValueError("fused_edge_reductions: a must be 16-byte aligned")
     cp = ap.shape[-1]
@@ -130,8 +135,10 @@ def _launch(geom, a, k, metric, w):
     mx, sm, sq = (torch.empty((batch, n, cp), dtype=torch.float32, device=dev)
                   for _ in range(3))
     cnt = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    order = None if order is None else order.contiguous()
     err = _build.lib().sednet_fused_edge_reductions(
-        geom.data_ptr(), ap.data_ptr(), batch, n, d, cp, k,
+        geom.data_ptr(), ap.data_ptr(),
+        0 if order is None else order.data_ptr(), batch, n, d, cp, k,
         METRICS.index(metric), float(w), cols.data_ptr(), kth.data_ptr(),
         tie.data_ptr(), mx.data_ptr(), sm.data_ptr(), sq.data_ptr(),
         cnt.data_ptr(), _build.stream_of(geom))
@@ -143,21 +150,29 @@ def _launch(geom, a, k, metric, w):
 
 
 def fused_edge_reductions(geom, a, k: int, *, metric: str = "sqdist",
-                          normal_metric_w: float = 1.0):
+                          normal_metric_w: float = 1.0, order=None):
     """Neighbour-set reductions of `a` under the self-kNN of `geom` (K4,
     `fused_edge_reductions`): (mx, sm, sq, cnt), see the module docstring.
 
     geom: (N, D) or (B, N, D); a: (N, C) or (B, N, C). On CUDA both must be
-    contiguous float32, k <= 128, D <= 256 and C <= 256."""
+    contiguous float32, k <= 128, D <= 256 and C <= 256. order: None or the
+    row order of the reduction, (N,) or (B, N) int32 as geom is batched,
+    which must be a permutation of each shape's rows (`gather_reduce`); it
+    changes no value, and the CPU path checks it and ignores it."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
+    squeeze = geom.dim() == 2
+    if order is not None:
+        _check_order(order[None] if squeeze else order,
+                     a[None] if squeeze else a)
     if geom.device.type == "cpu":
         return fused_edge_reductions_plain(geom, a, k, metric=metric,
                                            normal_metric_w=normal_metric_w)
-    if geom.dim() == 2:
-        out = _launch(geom[None], a[None], k, metric, normal_metric_w)
+    if squeeze:
+        out = _launch(geom[None], a[None], k, metric, normal_metric_w,
+                      None if order is None else order[None])
         return tuple(o[0] for o in out)
-    return _launch(geom, a, k, metric, normal_metric_w)
+    return _launch(geom, a, k, metric, normal_metric_w, order)
 
 
 fused_edge_reductions.launches = 0
@@ -165,7 +180,8 @@ fused_edge_reductions.launches = 0
 
 def fused_edge_conv(x, geom, weight, scale, bias, k: int, *, groups: int,
                     metric: str = "sqdist", normal_metric_w: float = 1.0,
-                    eps: float = 1e-6, negative_slope: float = 0.2):
+                    eps: float = 1e-6, negative_slope: float = 0.2,
+                    order=None):
     """One edge convolution, index-free (inference only).
 
     x: (B, N, C_in) layer input; geom: (B, N, D) the kNN metric rows (x
@@ -177,10 +193,12 @@ def fused_edge_conv(x, geom, weight, scale, bias, k: int, *, groups: int,
     sum(cnt) * gsz per shape (ties add items), mean of squares minus
     squared mean, eps inside the rsqrt. GroupNorm affine plus LeakyReLU is
     monotone per channel in the direction of sign(scale), so the signed
-    max is the extremum the channel needs. Returns (B, N, C)."""
+    max is the extremum the channel needs. order: the reduction's row
+    order (`fused_edge_reductions`). Returns (B, N, C)."""
     squeeze = x.dim() == 2
     if squeeze:
         x, geom = x[None], geom[None]
+        order = None if order is None else order[None]
     c_in = x.shape[-1]
     w_top = weight[:, :c_in]
     a = F.linear(x, w_top)
@@ -189,7 +207,7 @@ def fused_edge_conv(x, geom, weight, scale, bias, k: int, *, groups: int,
 
     mxs, sms, sq, cnt = fused_edge_reductions(
         geom.contiguous(), (a * sign).contiguous(), k, metric=metric,
-        normal_metric_w=normal_metric_w)
+        normal_metric_w=normal_metric_w, order=order)
     gext = sign * mxs
     gsum = sign * sms
     cnt = cnt[..., None]
@@ -219,16 +237,18 @@ def encoder_apply_fused(encoder, x):
     """The DGCNN encoder's forward through `fused_edge_conv`, on the same
     parameters (`models.backbone.DGCNNEncoder`): x (B, N, 6) in mode 5 or
     (B, N, 3) in mode 0. Returns (global (B, 1024), per-point features
-    (B, N, 256)), with every GroupNorm's statistics per shape."""
+    (B, N, 256)), with every GroupNorm's statistics per shape. One Morton
+    order of the points serves the three layers' reductions."""
     x = x.contiguous()
     metric1 = "points_normals" if encoder.mode == 5 else "sqdist"
+    order = locality_order(x[..., :3])
 
     def layer(conv, feats, metric):
         return fused_edge_conv(
             feats, feats, conv.conv.weight, conv.gn.weight, conv.gn.bias,
             encoder.k, groups=conv.gn.groups, metric=metric,
             normal_metric_w=encoder.normal_metric_w,
-            negative_slope=conv.negative_slope)
+            negative_slope=conv.negative_slope, order=order)
 
     x1 = layer(encoder.conv1, x, metric1)
     x2 = layer(encoder.conv2, x1, "sqdist")

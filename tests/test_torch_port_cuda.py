@@ -14,7 +14,8 @@ from sednet_tpu_torch.ops import fused_edgeconv as fe
 from sednet_tpu_torch.cluster import cluster_batch, guard_mean_shift
 from sednet_tpu_torch.cluster.spectral import hpnet_enrich
 from sednet_tpu_torch.data import make_synthetic_shape
-from sednet_tpu_torch.ops.graph import gather_reduce, gather_reduce_plain
+from sednet_tpu_torch.ops.graph import (gather_reduce, gather_reduce_plain,
+                                        locality_order)
 from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
                                              topk_plain)
 
@@ -512,6 +513,60 @@ def test_gather_reduce_kernel_matches_plain(cuda, c, k):
     assert float((sq - psq).abs().max()) <= 1e-5 * k * amax * amax
 
 
+# K6 walks its rows along the caller's order (runs of 64 positions a block),
+# but every row is computed the same way whatever block holds it: the
+# outputs are the same bits under the identity (None or written out), the
+# Morton order of the points, a random and the reversed permutation, at
+# every compiled width (C = 96 runs at 96 = 3 x 32; C = 32 one column a
+# lane), K from 1 to 128, B = 3 and N = 2003, not a multiple of the run.
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 33, 64, 128])
+@pytest.mark.parametrize("c", [32, 96, 128, 256])
+def test_gather_reduce_kernel_same_bits_under_every_order(cuda, c, k):
+    rng = np.random.RandomState(c + k)
+    b, n = 3, 2003
+    a = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, n, (b, n, k))).to(cuda)
+    xyz = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32)).to(cuda)
+    orders = {
+        "identity": torch.arange(n, dtype=torch.int32).expand(b, n),
+        "random": torch.from_numpy(np.stack([rng.permutation(n)
+                                             for _ in range(b)])),
+        "reversed": torch.arange(n - 1, -1, -1, dtype=torch.int32).expand(
+            b, n)}
+    orders = {name: o.to(torch.int32).contiguous().to(cuda)
+              for name, o in orders.items()}
+    orders["morton"] = locality_order(xyz)
+    want = gather_reduce(a, idx)
+    for name, order in orders.items():
+        before = gather_reduce.launches
+        got = gather_reduce(a, idx, order)
+        torch.cuda.synchronize()
+        assert gather_reduce.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+    ps, psq, pmx = gather_reduce_plain(a, idx)
+    amax = float(a.abs().max())
+    assert torch.equal(want[2], pmx)
+    assert float((want[0] - ps).abs().max()) <= 1e-5 * k * amax
+    assert float((want[1] - psq).abs().max()) <= 1e-5 * k * amax * amax
+
+
+# An order of the wrong shape, type or device raises on the card as on the
+# CPU; no wrapper gives way to the plain version.
+@pytest.mark.cuda
+def test_gather_reduce_kernel_rejects_a_bad_order(cuda):
+    rng = np.random.RandomState(12)
+    a = torch.from_numpy(rng.randn(2, 300, 64).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, 300, (2, 300, 16))).to(cuda)
+    good = torch.arange(300, dtype=torch.int32, device=cuda).expand(2, 300)
+    before = gather_reduce.launches
+    for bad in (good[:, :299], good[0], good.long(), good.cpu()):
+        with pytest.raises(ValueError, match="order"):
+            gather_reduce(a, idx, bad)
+    assert gather_reduce.launches == before
+
+
 # K6 is forward only. With a table that requires grad, the forward still
 # launches the kernel and gives the same values, but a backward through it
 # raises instead of silently dropping the gather's term from the gradient.
@@ -529,6 +584,92 @@ def test_gather_reduce_kernel_backward_raises(cuda):
         assert g.requires_grad and torch.equal(g.detach(), w)
     with pytest.raises(NotImplementedError, match="no backward"):
         sum(g.sum() for g in got).backward()
+
+
+# K4's phase 2 is K6's loop along the same order: the output with the
+# Morton order of the points is the output without it, bit for bit, on
+# every row (tied rows included: phase 2b adds to them in rank order
+# whatever phase 2's order was).
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,d,c", [("points_normals", 6, 64),
+                                        ("sqdist", 64, 128)])
+def test_fused_edge_reductions_kernel_order_keeps_bits(cuda, metric, d, c):
+    rng = np.random.RandomState(d + c)
+    b, n, k = 2, 2003, 64
+    g = rng.randn(b, n, d).astype(np.float32)
+    if metric == "points_normals":
+        g[..., 3:6] /= np.linalg.norm(g[..., 3:6], axis=-1, keepdims=True)
+    g = torch.from_numpy(g).to(cuda)
+    a = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(cuda)
+    order = locality_order(g[..., :3].contiguous())
+    want = fe.fused_edge_reductions(g, a, k, metric=metric)
+    got = fe.fused_edge_reductions(g, a, k, metric=metric, order=order)
+    one = fe.fused_edge_reductions(g[1], a[1], k, metric=metric,
+                                   order=order[1])
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, want, one):
+        assert torch.equal(x, y) and torch.equal(z, y[1])
+    with pytest.raises(ValueError, match="order"):
+        fe.fused_edge_reductions(g, a, k, metric=metric, order=order.long())
+
+
+def _segsum_layout(kind, rng, chunk=2048):
+    """Destination counts of the layouts that stress K5's chunk plan (the
+    kernel's chunk is 2048 entries): one destination holding every entry;
+    every destination one entry; segments ending exactly on chunk edges;
+    empty destinations first and last around skewed segments; E not a
+    multiple of the chunk."""
+    if kind == "one_destination":
+        counts = np.zeros(700, np.int64)
+        counts[350] = 5 * chunk + 17
+    elif kind == "every_one":
+        counts = np.ones(3 * chunk + 5, np.int64)
+    elif kind == "chunk_edges":
+        counts = np.array([0, chunk, 0, chunk // 2, chunk // 2, 3 * chunk, 0,
+                           chunk - 1, 1, 0], np.int64)
+    elif kind == "empty_ends":
+        counts = np.zeros(900, np.int64)
+        counts[5:-5] = rng.randint(0, 40, 890)
+        counts[17] = 3 * chunk + 11
+    else:   # ragged
+        counts = np.zeros(4000, np.int64)
+        hot = rng.choice(4000, 60, replace=False)
+        counts[hot] = rng.randint(1, 900, 60)
+        counts[hot[:3]] = [chunk + 5, 4 * chunk - 3, 2 * chunk]
+    dest = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    return dest, np.cumsum(counts).astype(np.int32), counts
+
+
+SEGSUM_LAYOUTS = ["one_destination", "every_one", "chunk_edges",
+                  "empty_ends", "ragged"]
+
+
+# K5's chunk plan on the adversarial layouts: bit-identical across two
+# launches (no float atomics; crossing segments merged in chunk order),
+# exactly 0 at empty destinations, within 1e-5 of each segment's sum of
+# |entries| of the plain version (the segmented scan, another order of
+# pairwise adds), at m = 1 and 37.
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 37])
+@pytest.mark.parametrize("kind", SEGSUM_LAYOUTS)
+def test_segsum_sorted_scan_kernel_adversarial_layouts(cuda, kind, m):
+    rng = np.random.RandomState(len(kind) + m)
+    dest, ends, counts = _segsum_layout(kind, rng)
+    e = dest.shape[0]
+    vals = (rng.randn(m, e) * 10.0 ** rng.uniform(-3, 3, (1, e))).astype(
+        np.float32)
+    vt, dt, et = (torch.from_numpy(x).to(cuda) for x in (vals, dest, ends))
+    before = ck.segsum_sorted_scan.launches
+    got = ck.segsum_sorted_scan(vt, dt, et)
+    again = ck.segsum_sorted_scan(vt, dt, et)
+    torch.cuda.synchronize()
+    assert ck.segsum_sorted_scan.launches == before + 2
+    assert got.shape == (len(counts), m) and torch.equal(got, again)
+    want = ck.segsum_sorted_scan_plain(vt, dt, et)
+    scale = ck.segsum_sorted_scan_plain(vt.abs(), dt, et)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    empty = torch.from_numpy(counts == 0).to(cuda)
+    assert bool((got[empty] == 0).all())
 
 
 def _segments(rng, n, skewed):

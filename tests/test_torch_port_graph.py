@@ -1,14 +1,26 @@
 """The port's gather-reduce (kernel K6's plain version,
 sednet_tpu_torch.ops.graph) against the JAX package's gather and
-reductions on the CPU, and the edge convolution that goes through it."""
+reductions on the CPU, the edge convolution that goes through it, and the
+Morton row order (`locality_order`) that the encoder hands it."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sednet_tpu.config import Config as JaxConfig
+from sednet_tpu.ops.flash_topk import _locality_order
 from sednet_tpu.ops.graph import gather_neighbors as gather_jax
+from sednet_tpu.train import build_model, load_params
+from sednet_tpu_torch.config import Config
+from sednet_tpu_torch.ops import graph
 from sednet_tpu_torch.ops.graph import (edge_conv_factored, gather_reduce,
-                                        gather_reduce_plain)
+                                        gather_reduce_plain, locality_order)
+from sednet_tpu_torch.predict import headline_shapes, load_models
+
+CKPT = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                    "checkpoints", "bench_10k.npz")
 
 B, N, K = 2, 300, 16
 
@@ -73,3 +85,94 @@ def test_edge_conv_factored_matches_explicit_edge_features():
     y = ((hg - mean) * torch.rsqrt(var + 1e-6)).reshape(B, N, K, c_out)
     want = torch.nn.functional.leaky_relu(y * scale + bias, 0.2).amax(2)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _jax_orders(xyz):
+    return np.stack([np.asarray(_locality_order(jnp.asarray(c)))
+                     for c in xyz])
+
+
+# The port's Morton order against JAX's on the xyz of two 2048-point eval
+# clouds, and on a cloud where every point appears two or three times (a
+# stable sort keeps duplicated keys in row order in both). The centring
+# mean is a float32 sum in another order in the two frameworks, so a point
+# on a quantisation edge could change its key: at most 1 row in 1000 may
+# differ (on these clouds none did when the test was written).
+@pytest.mark.parametrize("cloud", ["eval", "duplicated"])
+def test_locality_order_matches_jax(cloud):
+    if cloud == "eval":
+        xyz = headline_shapes(2, 2048)[1][..., :3]
+    else:
+        rng = np.random.RandomState(4)
+        base = rng.randn(700, 3).astype(np.float32)
+        xyz = base[rng.randint(0, 700, (2, 2048))]
+        xyz[:, :700] = base   # every base point at least once
+    xyz = np.ascontiguousarray(xyz)
+    got = locality_order(torch.from_numpy(xyz))
+    assert got.dtype == torch.int32 and got.shape == xyz.shape[:2]
+    for row in got.numpy():
+        assert np.array_equal(np.sort(row), np.arange(xyz.shape[1]))
+    differ = int((got.numpy() != _jax_orders(xyz)).sum())
+    assert differ <= xyz.shape[0] * xyz.shape[1] // 1000
+
+
+# Only xyz (D <= 3) is ported; wider rows (the JAX function's PCA branch)
+# raise, and D < 3 is padded with zero axes as JAX pads it.
+def test_locality_order_takes_xyz_only():
+    rng = np.random.RandomState(5)
+    with pytest.raises(ValueError, match="D <= 3"):
+        locality_order(torch.from_numpy(rng.randn(1, 50, 6).astype(
+            np.float32)))
+    xy = rng.randn(1, 300, 2).astype(np.float32)
+    np.testing.assert_array_equal(locality_order(torch.from_numpy(xy)),
+                                  _jax_orders(xy))
+
+
+# On the CPU the order is checked and ignored: the result with a Morton,
+# reversed or random order is the result without one, bit for bit, and a
+# malformed order raises.
+def test_gather_reduce_with_order_equals_without_on_cpu():
+    a, idx = _inputs(64, 2)
+    at, it = torch.from_numpy(a), torch.from_numpy(idx)
+    rng = np.random.RandomState(6)
+    xyz = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32))
+    want = gather_reduce(at, it)
+    for order in (locality_order(xyz),
+                  torch.arange(N - 1, -1, -1, dtype=torch.int32).expand(B, N),
+                  torch.from_numpy(np.stack([rng.permutation(N)
+                                             for _ in range(B)]).astype(
+                                                 np.int32))):
+        for g, w in zip(gather_reduce(at, it, order), want):
+            assert torch.equal(g, w)
+    good = locality_order(xyz)
+    for bad in (good[:, 1:], good[0], good.long()):
+        with pytest.raises(ValueError, match="order"):
+            gather_reduce(at, it, bad)
+
+
+# The encoder computes one Morton order of the points per call and hands it
+# to its three edge convolutions; the forward with the order threaded
+# through still matches JAX's model at atol 1e-4 (the tolerance of
+# tests/test_torch_port_model.py: float association through 3 edge convs
+# and 6 GroupNorms).
+def test_encoder_threads_one_morton_order(monkeypatch):
+    _, x = headline_shapes(1, 512)
+    jmodel = build_model(JaxConfig(num_points=512, knn=64, embed=128))
+    want = jmodel.apply({"params": load_params(CKPT)["inst"]},
+                        jnp.asarray(x))
+    model = load_models(CKPT, Config(knn=64, embed=128), device="cpu",
+                        which=("inst",))["inst"]
+    seen = []
+    real = graph.gather_reduce
+
+    def spy(a, idx, order=None):
+        seen.append(order)
+        return real(a, idx, order)
+
+    monkeypatch.setattr(graph, "gather_reduce", spy)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    order = locality_order(torch.from_numpy(x[..., :3]))
+    assert len(seen) == 3 and all(torch.equal(o, order) for o in seen)
+    np.testing.assert_allclose(got.embedding.numpy(),
+                               np.asarray(want.embedding), atol=1e-4)

@@ -170,6 +170,148 @@ def test_segsum_sorted_scan_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(scan.numpy(), got)
 
 
+def _block_piece_sum(vals_t, c0, p0, p1, chunk):
+    """The sum of the entries [p0, p1) of vals_t (m, E), a piece of the
+    chunk that starts at c0, in the order of one block of K5
+    (csrc/segsum.cu segsum_pieces): warp w of the 8 owns the span
+    [c0 + w chunk / 8, c0 + (w + 1) chunk / 8) of the chunk, lane l of a
+    warp the entries whose offset from c0 is 4 l + t (t < 4) modulo 128;
+    each lane adds its entries in the piece in ascending order, a butterfly
+    of shuffles (xor 16, 8, 4, 2, 1) adds a warp's lanes, and the warps'
+    sums are added in warp order."""
+    span = chunk // 8
+    total = None
+    for w in range(8):
+        a, b = max(p0, c0 + span * w), min(p1, c0 + span * (w + 1))
+        if a >= b:
+            continue
+        lanes = np.zeros((vals_t.shape[0], 32), np.float32)
+        for e in range(a, b):
+            lane = (e - c0) // 4 % 32
+            lanes[:, lane] = lanes[:, lane] + vals_t[:, e]
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ off]
+        total = lanes[:, 0] if total is None else total + lanes[:, 0]
+    return total
+
+
+def _k5_chunk_plan(vals_t, ends, chunk):
+    """numpy emulation of K5's two launches on (m, E) entries. Pass 1:
+    chunk c of the entries is one block, which finds by position the pieces
+    of the segments that touch it and sums each (`_block_piece_sum`); a
+    segment wholly inside goes to out, the piece of the segment that ran
+    into the chunk to first[c], the piece of the one that runs on past it to
+    last[c]. Pass 2 writes 0 for every empty destination and adds a
+    crossing segment's pieces in chunk order. Returns (out (N, m), the
+    number of writes of each out row)."""
+    m, e = vals_t.shape
+    n = ends.shape[0]
+    ends = ends.astype(np.int64)
+    starts = np.concatenate([[0], ends[:-1]])
+    chunks = max(1, -(-e // chunk))
+    out = np.full((n, m), np.nan, np.float32)
+    writes = np.zeros(n, np.int64)
+    first = np.full((chunks, m), np.nan, np.float32)
+    last = np.full((chunks, m), np.nan, np.float32)
+    cross = np.full(chunks, -1)
+    for c in range(chunks):
+        c0, c1 = c * chunk, min((c + 1) * chunk, e)
+        p = c0
+        while p < c1:
+            d = int(np.searchsorted(ends, p, side="right"))  # holds entry p
+            if d >= n:
+                break
+            s, t = starts[d], ends[d]
+            piece = _block_piece_sum(vals_t, c0, max(s, c0), min(t, c1),
+                                     chunk)
+            if s < c0:
+                first[c] = piece
+            elif t > c1:
+                last[c] = piece
+                cross[c] = d
+            else:
+                out[d] = piece
+                writes[d] += 1
+            p = t
+    empty = ends <= starts
+    out[empty] = 0.0
+    writes[empty] += 1
+    for c in np.nonzero(cross >= 0)[0]:
+        d, acc, c2 = cross[c], last[c], c + 1
+        while c2 < chunks and c2 * chunk < ends[d]:
+            acc = acc + first[c2]
+            c2 += 1
+        out[d] = acc
+        writes[d] += 1
+    return out, writes
+
+
+PLAN_CHUNK = 2048   # the kernel's: 8 warps of 256 entries
+
+
+def _plan_counts(kind, rng, chunk=PLAN_CHUNK):
+    """Destination counts of the layouts that stress the chunk plan."""
+    if kind == "one_destination":
+        counts = np.zeros(50, np.int64)
+        counts[25] = 5 * chunk + 17
+    elif kind == "every_one":
+        counts = np.ones(3 * chunk + 5, np.int64)
+    elif kind == "chunk_edges":
+        counts = np.array([0, chunk, 0, chunk // 2, chunk // 2, 3 * chunk, 0,
+                           chunk - 1, 1, 0], np.int64)
+    elif kind == "empty_ends":
+        counts = np.zeros(120, np.int64)
+        counts[5:-5] = rng.randint(0, 9, 110)
+        counts[17] = 3 * chunk + 11
+    else:   # ragged: skewed, E not a multiple of the chunk
+        counts = np.zeros(300, np.int64)
+        hot = rng.choice(300, 12, replace=False)
+        counts[hot] = rng.randint(1, 3 * chunk, 12)
+        counts[hot[0]] = 4 * chunk - 3
+    return counts
+
+
+# K5's chunk plan, emulated in numpy with the kernel's order of adds, on
+# the layouts that stress it: one destination holding every entry, every
+# destination one entry, segments ending exactly on chunk edges, empty
+# destinations first and last, E not a multiple of the chunk; m = 1 and 37.
+# Every destination is written exactly once. On small integers, whose every
+# partial sum is exact in float32, it equals the plain version bit for bit;
+# on entries over six decades it is within 1e-5 of each segment's sum of
+# |entries| (K5's tolerance on the card: another order of pairwise adds) of
+# the plain version and of the Pallas kernel in interpret mode. A tolerance
+# relative to the sum itself does not bound a reordering where the entries
+# cancel (a long segment of entries up to 1e3 can sum to below 1); empty
+# destinations are exactly 0.
+@pytest.mark.parametrize("m", [1, 37])
+@pytest.mark.parametrize("kind", ["one_destination", "every_one",
+                                  "chunk_edges", "empty_ends", "ragged"])
+def test_segsum_chunk_plan_emulation(kind, m):
+    rng = np.random.RandomState(len(kind) * 7 + m)
+    counts = _plan_counts(kind, rng)
+    dest = np.repeat(np.arange(counts.shape[0]), counts).astype(np.int32)
+    ends = np.cumsum(counts).astype(np.int32)
+    e = dest.shape[0]
+    ints = rng.randint(-8, 9, (m, e)).astype(np.float32)
+    got, writes = _k5_chunk_plan(ints, ends, PLAN_CHUNK)
+    assert np.all(writes == 1)
+    np.testing.assert_array_equal(
+        got, segsum_sorted_scan_plain(*_t(ints, dest, ends)).numpy())
+
+    vals = (rng.randn(m, e) * 10.0 ** rng.uniform(-3, 3, (1, e))).astype(
+        np.float32)
+    got, _ = _k5_chunk_plan(vals, ends, PLAN_CHUNK)
+    vt, dt, et = _t(vals, dest, ends)
+    plain = segsum_sorted_scan_plain(vt, dt, et).numpy()
+    scale = segsum_sorted_scan_plain(vt.abs(), dt, et).numpy()
+    assert np.all(np.abs(got - plain) <= 1e-5 * scale)
+    want = np.asarray(segsum_sorted_scan_pallas(
+        jnp.asarray(vals), jnp.asarray(dest), jnp.asarray(ends),
+        interpret=True))
+    assert np.all(np.abs(got - want) <= 1e-5 * scale)
+    assert np.all(got[counts == 0] == 0.0)
+
+
 # The downstream invariant of tests/test_cluster.py:236-260: the farthest
 # quirk's eigenvectors are localised, so eigenvectors are not compared
 # across layouts; the enriched embedding's mean-shift partition is. From
