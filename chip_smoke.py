@@ -35,6 +35,20 @@ is not 0):
   predict_fused  the same with `fused_encoder=True` (kernel K4), held to the
              same numbers and to the `predict` run's labels, unprofiled;
   predict_fold5drop  the same with the type model's fold5drop votes;
+  predict_cli  the predict CLI's loop (`predict.predict_loader`, which
+             `run_prediction` runs over an h5 test set read with h5py;
+             this phase needs no h5py) over the same 8 clouds, drawn raw
+             from the eval stream into the port's array-backed dataset and
+             held to
+             headline_shapes' clouds, in two double-buffered batches of 4,
+             with the txt dumps and postproc (fitted primitives, curves,
+             corners, meshes) into build/predict_cli/: its results equal a
+             sequential predict_shapes per batch with the same generator,
+             its metrics lie within the predict phase's JAX bars, every
+             shape's files exist, and its launches are the predict phase's
+             per batch and per shape; shapes/s with dumps and postproc off
+             and with dumps on, the streamed and sequential walls, postproc
+             s a shape, peak memory;
   kernels_slice3  K6 (the gather-reduce of the index-route edge conv) at
              the encoder's three layer shapes on the real tables and graphs,
              along the Morton order of the points and along the identity
@@ -1084,6 +1098,170 @@ def phase_predict_all(models, shapes):
     return {name: v[0] for name, v in out.items()}
 
 
+CLI_BATCH = 4        # the 8 clouds in two batches, so that two overlap
+CLI_ITEM_TOL = 1e-6  # the dataset's items against headline_shapes' x
+# launches a shape makes on the predict path: its farthest-50 graph and its
+# bandwidth (K1), its three NMS passes (K3); the rest are launches a batch
+CLI_PER_SHAPE = {"K1": 2, "K2b": 0, "K3": 3, "K6": 0}
+CLI_DUMPS = ("inst", "type", "GT_inst", "GT_type", "Vis_type", "Vis_inst",
+             "edge", "GT_points")
+
+
+def cli_dataset():
+    """The 8 raw eval clouds, drawn from EVAL_STREAM_SEED as
+    headline_shapes draws them, in the port's array-backed dataset (the
+    class under ParseNetDataset and EdgeDataset, which read h5 files),
+    eval mode."""
+    import numpy as np
+    from sednet_tpu_torch.data import EVAL_STREAM_SEED, make_synthetic_shape
+    from sednet_tpu_torch.data.datasets import _H5Dataset
+
+    rng = np.random.RandomState(EVAL_STREAM_SEED)
+    raw = [make_synthetic_shape(rng, n_points=N_POINTS, n_segments=6)
+           for _ in range(BATCH)]
+    arr = {k: np.stack([d[k] for d in raw]) for k in
+           ("points", "labels", "normals", "prim", "edges", "edges_w")}
+    return _H5Dataset(arr["points"], arr["labels"], arr["normals"],
+                      arr["prim"], arr["edges"], arr["edges_w"], train=False,
+                      num_points=N_POINTS)
+
+
+def _cli_expected_launches(pred_launches, n_batches):
+    """The launches of the CLI loop over n_batches batches of the BATCH
+    clouds, from those of one predict_shapes call on all of them."""
+    return {k: n_batches * (pred_launches[k] - per * BATCH) + per * BATCH
+            for k, per in CLI_PER_SHAPE.items()}
+
+
+def _same_results(got, want):
+    """The fields of (a) that differ between two per-shape result lists."""
+    import numpy as np
+
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for name in ("cluster_ids", "pred_primitives", "num_clusters",
+                     "guard_capped", "guard_bw_capped", "inst_iou",
+                     "type_iou", "inst_recall"):
+            if not np.array_equal(g[name], w[name]):
+                bad.append((i, name))
+    return bad
+
+
+def phase_predict_cli(models, shapes, pred_launches):
+    """The predict CLI's loop (`predict.predict_loader`, which
+    run_prediction runs over an h5 dataset) over the 8 clouds in batches of
+    CLI_BATCH, under the predict phase's config, with the txt dumps and
+    postproc into build/predict_cli/. Held to: (a) a sequential
+    predict_shapes per batch with the same generator, field for field;
+    (b) the predict phase's JAX bars; (c) every shape's files; (d) the
+    predict phase's launches, per batch and per shape. Timed: the loop with
+    dumps and postproc off, with dumps on, and a sequential
+    predict_shapes per batch, each from a cold spectral cache."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from sednet_tpu_torch import predict
+    from sednet_tpu_torch.data import BatchLoader
+
+    cfg = predict_cfg()
+    ds = cli_dataset()
+    item_err = max(float(np.abs(ds[i][k] - shapes[i][k]).max())
+                   for i in range(BATCH) for k in ("points", "normals"))
+    labels_same = all(np.array_equal(ds[i][k], shapes[i][k])
+                      for i in range(BATCH) for k in ("labels", "prim"))
+    if item_err > CLI_ITEM_TOL or not labels_same:
+        raise AssertionError(f"predict_cli: dataset items {item_err} from "
+                             f"headline_shapes (labels same: {labels_same})")
+    root = os.path.join(ROOT, "build", "predict_cli")
+
+    def loop(name, **kw):
+        out = os.path.join(root, name)
+        shutil.rmtree(out, ignore_errors=True)
+        loader = BatchLoader(ds, CLI_BATCH, shuffle=False, drop_last=False)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary, res = predict.predict_loader(
+            loader, cfg, models["type"], models["inst"], out_dir=out, **kw)
+        torch.cuda.synchronize()
+        return time.time() - t0, summary, res, out
+
+    # the checked run, with dumps and postproc; postproc timed in place
+    post_s = []
+    run_postproc = predict.run_postproc
+
+    def timed_postproc(*args):
+        t0 = time.time()
+        out = run_postproc(*args)
+        post_s.append(time.time() - t0)
+        return out
+
+    predict.run_postproc = timed_postproc
+    reset_counts()
+    try:
+        wall_full, summary, res, out = loop("full", save_viz=True,
+                                            postproc=True)
+    finally:
+        predict.run_postproc = run_postproc
+    counts = read_counts()
+    n_batches = -(-BATCH // CLI_BATCH)
+    expected = _cli_expected_launches(pred_launches, n_batches)
+    launches_ok = all(counts[k] == v for k, v in expected.items())
+
+    # (a): each batch through predict_shapes alone, its generator the same
+    batches = list(BatchLoader(ds, CLI_BATCH, shuffle=False,
+                               drop_last=False))
+    tta = predict.make_tta_type_log_prob(models["type"], cfg, False, False)
+    fwd = predict.make_forward(models["inst"])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seq = [r for b in batches for r in predict.predict_shapes(
+        models["type"], models["inst"], b, cfg, tta_fn=tta, forward_fn=fwd,
+        generator=predict.batch_generator(cfg.seed))]
+    torch.cuda.synchronize()
+    wall_seq = time.time() - t0
+    differ = _same_results(res, seq)
+
+    torch.cuda.reset_peak_memory_stats()
+    wall_stream, _, res_b, _ = loop("nodumps", save_viz=False,
+                                    postproc=False)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall_dumps, _, _, _ = loop("dumps", save_viz=True, postproc=False)
+    differ += [("nodumps",) + d for d in _same_results(res_b, seq)]
+
+    got = {m: summary[m] for m in ("inst_iou", "type_iou", "inst_recall")}
+    bars_ok = all(abs(got[m] - REF_PREDICT_MEAN[m]) <= PREDICT_TOL[m]
+                  for m in got)
+    missing = [p for sid in range(BATCH) for p in
+               [f"{sid}_{d}.txt" for d in CLI_DUMPS]
+               + [os.path.join("paras", f"param_{sid}.txt"),
+                  os.path.join("paras", f"param_inter_lines_{sid}.json"),
+                  f"{sid}_mesh"]
+               if not os.path.exists(os.path.join(out, p))]
+    ok = (not differ and bars_ok and not missing and launches_ok
+          and summary["n_shapes"] == BATCH)
+    emit({"phase": "predict_cli", "ok": ok, "batch": CLI_BATCH,
+          "n_batches": n_batches, "n_shapes": summary["n_shapes"],
+          "item_max_abs_err": item_err, "item_tol": CLI_ITEM_TOL,
+          "shapes_per_s_no_dumps": BATCH / wall_stream,
+          "shapes_per_s_dumps": BATCH / wall_dumps,
+          "wall_streamed_s": wall_stream, "wall_sequential_s": wall_seq,
+          "wall_dumps_postproc_s": wall_full,
+          "postproc_s_per_shape": float(np.mean(post_s)),
+          "postproc_s": post_s, "peak_mem_gib": peak_gib,
+          **got, "ref": REF_PREDICT_MEAN, "tol": PREDICT_TOL,
+          "per_shape": [[r["inst_iou"], r["type_iou"], r["inst_recall"],
+                         r["num_clusters"]] for r in res],
+          "guard_capped": summary["guard_capped"],
+          "launches": counts, "expected_launches": expected,
+          "differ_from_sequential": differ, "missing_files": missing})
+    if not ok:
+        raise AssertionError(
+            f"predict_cli: differ {differ}, bars {got}, missing {missing}, "
+            f"launches {counts} (expected {expected})")
+    return counts
+
+
 def distinct_fraction(idx, order, run):
     """The distinct neighbour rows that a run of `run` consecutive positions
     of `order` reads, over the run * K rows it reads, averaged over the full
@@ -1509,6 +1687,8 @@ def main():
     for key, cases in phase_kernels_slice3(models, x, big_x).items():
         timings.setdefault(key, []).extend(cases)
     pred = phase_predict_all(models, shapes)
+    cli_counts = phase_predict_cli(models, shapes,
+                                   pred["predict"]["launches"])
     gen = torch.Generator().manual_seed(8)
     big_inputs = ([torch.randn((BIG_POINTS, 12), generator=gen)
                    for _ in range(BIG_BATCH)],
@@ -1518,13 +1698,13 @@ def main():
                                                      big_x, big_inputs)
     timings["K2b"].append(k2b_big)
     phase_predict_bigcloud(models, big_shapes, big_inputs)
-    # each kernel's launches from the path of this smoke that runs it:
-    # K2b and K6 from the reference-default eval, K4 from its fused form,
-    # K5 from the "pallas" enrichment of the large clouds
-    counts["K2b"] = pred["predict"]["launches"]["K2b"]
+    # each kernel's launches from the path of this smoke that runs it: K1,
+    # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds, K2 from
+    # the headline, K4 from the eval's fused form, K5 from the "pallas"
+    # enrichment of the large clouds
+    counts.update({k: cli_counts[k] for k in ("K1", "K2b", "K3", "K6")})
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]
-    counts["K6"] = pred["predict"]["launches"]["K6"]
 
     summary = []
     for key, (name, source, replaces) in KERNELS.items():

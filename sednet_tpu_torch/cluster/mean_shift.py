@@ -11,6 +11,15 @@ movement is <= tol, and the retry loop multiplies the quantile by the
 retry factor in float32 until at most `max_clusters` clusters remain (16
 retries at most). Random subsamples come from a `torch.Generator`; tests
 inject JAX's indices through `sel`, or a bandwidth.
+
+`cluster_batch` is `cluster_batch_finalize(cluster_batch_async(...))`, as
+in the JAX package (`sednet_tpu/cluster/mean_shift.py:328,347`). The async
+half (bandwidths, the batched shift loop) reads nothing back to the host:
+its tol exit is a flag on the device that freezes the rows of every later
+step, which gives the rows of the early exit. The finalize half reads the
+bandwidths, runs NMS, reads the cluster counts once, and retries the
+shapes with too many clusters. `guard_mean_shift` (one shape) keeps the
+loop that reads each step's movement on the host and stops.
 """
 from __future__ import annotations
 
@@ -85,6 +94,23 @@ def _iterate_until(step, x, iterations: int, tol: float):
     return cur
 
 
+def _iterate_on_device(step, x, iterations: int, tol: float):
+    """`_iterate_until` without a host read: every step runs, and once a
+    step has moved no coordinate by more than tol, the steps after it keep
+    its rows (torch.where on a done flag held on the device). The steps
+    after the exit still cost their time: that is the price of queuing
+    the loop without waiting on the device."""
+    cur = x
+    done = torch.zeros((), dtype=torch.bool, device=x.device)
+    for _ in range(iterations):
+        nxt = step(cur)
+        if tol > 0.0:
+            nxt = torch.where(done, cur, nxt)
+            done = done | ((nxt - cur).abs().max() <= tol)
+        cur = nxt
+    return cur
+
+
 def mean_shift_iterate(x, bandwidth, iterations: int = 50,
                        tol: float = 0.0):
     """Up to `iterations` gaussian mean-shift steps of x (N, E) unit rows
@@ -94,16 +120,20 @@ def mean_shift_iterate(x, bandwidth, iterations: int = 50,
                           x, iterations, tol)
 
 
-def nms(centers, x, b: float):
+def nms_device(centers, x, b: float):
     """Non-max suppression (reference: src/mean_shift.py:139-179), as the
-    three column-max passes of the JAX package. Returns (labels (N,)
-    int64 compact ids, center_mask (N,) bool, num_clusters int)."""
+    three column-max passes of the JAX package, with no host read.
+    Returns (labels (N,) int64 compact ids, center_mask (N,) bool,
+    num_clusters as a 0-d tensor)."""
     n = x.shape[0]
     inf = float("inf")
     zeros = torch.zeros(n, dtype=torch.float32, device=x.device)
     # nearest shifted center of every point (first index on ties)
     _, membership = colmax(x, centers, zeros, inf, 1.0)
-    counts = torch.bincount(membership.long(), minlength=n).float()
+    # a count per center (exact in float32); bincount would read the
+    # largest index back to size its output
+    counts = torch.zeros(n, dtype=torch.float32, device=x.device).index_add_(
+        0, membership.long(), torch.ones(n, device=x.device))
     occupied = counts > 0
     # centers within the bandwidth vote for their heaviest neighbour
     _, rep = colmax(centers, centers, counts, b, 0.0)
@@ -114,7 +144,13 @@ def nms(centers, x, b: float):
     masked = torch.where(center_mask, 0.0, -inf)
     _, raw = colmax(x, centers, masked, inf, 1.0)
     compact = torch.cumsum(center_mask.long(), 0) - 1
-    return compact[raw.long()], center_mask, int(center_mask.sum())
+    return compact[raw.long()], center_mask, center_mask.sum()
+
+
+def nms(centers, x, b: float):
+    """`nms_device` with the cluster count read back as an int."""
+    labels, center_mask, num = nms_device(centers, x, b)
+    return labels, center_mask, int(num)
 
 
 def mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
@@ -198,6 +234,71 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
                     retry_factor=retry_factor)
 
 
+@dataclass
+class ClusterPending:
+    """What `cluster_batch_async` leaves for `cluster_batch_finalize`."""
+    x: torch.Tensor             # (B, N, kernel width) unit rows
+    width: int                  # their true width E
+    shifted: torch.Tensor       # (B, N, kernel width) after the shift loop
+    bandwidth: torch.Tensor     # (B,) on the device
+    sels: list                  # per shape, the subsamples of each attempt
+    generator: object           # draws the retries' subsamples
+
+
+def cluster_batch_async(x, *, num_samples: int = 10000, quantile=0.015,
+                        iterations: int = 50, tol: float = DEFAULT_MS_TOL,
+                        generator=None, sels=None) -> ClusterPending:
+    """The device half of `cluster_batch`: one bandwidth per shape (K1)
+    and the shift steps of every shape in one launch each (K2b), with the
+    batch-global tol exit held on the device (`_iterate_on_device`).
+    Launches only; reads nothing back to the host."""
+    b = x.shape[0]
+    e = x.shape[-1]
+    x = kernel_width(x)
+    sels = [s if isinstance(s, (list, tuple)) else [s]
+            for s in (sels if sels is not None else [None] * b)]
+    bw = torch.stack([torch.clamp_min(compute_bandwidth(
+        x[i], num_samples, np.float32(quantile), generator=generator,
+        sel=sels[i][0]), _MIN_BANDWIDTH) for i in range(b)])
+    shifted = _iterate_on_device(
+        lambda cur: mean_shift_step_batched(cur, x, bw), x, iterations, tol)
+    return ClusterPending(x, e, shifted, bw, sels, generator)
+
+
+def cluster_batch_finalize(pending: ClusterPending, *,
+                           num_samples: int = 10000, quantile=0.015,
+                           iterations: int = 50, max_clusters: int = 49,
+                           retry_factor: float = 1.2,
+                           tol: float = DEFAULT_MS_TOL):
+    """The host half of `cluster_batch`: the bandwidths read back, NMS of
+    every shape (K3) with one read of the cluster counts, and a guarded
+    retry (K1, K2, K3) for each shape with more than max_clusters
+    clusters. Pass the clustering settings of the `cluster_batch_async`
+    call that made `pending`."""
+    x, shifted = pending.x, pending.shifted
+    b = x.shape[0]
+    bw_host = pending.bandwidth.tolist()
+    found = [nms_device(shifted[i], x[i], bw_host[i]) for i in range(b)]
+    nums = np.asarray(torch.stack([f[2] for f in found]).tolist(), np.int64)
+    labels = [f[0] for f in found]
+    capped = np.zeros((b,), bool)
+    bw_capped = np.zeros((b,), bool)
+    for i in np.nonzero(nums > max_clusters)[0]:
+        first = MeanShiftResult(shifted[i], labels[i], found[i][1],
+                                int(nums[i]), bw_host[i],
+                                np.float32(quantile))
+        attempt = _attempts(x[i], pending.sels[i], num_samples=num_samples,
+                            iterations=iterations, tol=tol,
+                            generator=pending.generator)
+        res = _guarded(x[i], pending.width, first, attempt,
+                       num_samples=num_samples, max_clusters=max_clusters,
+                       retry_factor=retry_factor)
+        labels[i], nums[i] = res.labels, res.num_clusters
+        capped[i], bw_capped[i] = res.capped, res.bw_capped
+    return (torch.stack(labels), torch.as_tensor(nums),
+            {"capped": capped, "bw_capped": bw_capped})
+
+
 def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
                   iterations: int = 50, max_clusters: int = 49,
                   retry_factor: float = 1.2, tol: float = DEFAULT_MS_TOL,
@@ -205,7 +306,8 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
     """Cluster a batch x (B, N, E): one bandwidth per shape, the shift
     steps of every shape in one launch (K2b) with a batch-global tol exit,
     per-shape NMS, and a guarded retry only for shapes with more than
-    max_clusters clusters.
+    max_clusters clusters (`cluster_batch_async`, then
+    `cluster_batch_finalize`).
 
     sels: optional subsample indices per shape, a tensor or a list with
     one per attempt (the first for the batch pass, the rest for the
@@ -216,34 +318,10 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
 
     Returns (labels (B, N) int64, num_clusters (B,) int64, flags) with
     flags {"capped", "bw_capped"} as (B,) bool arrays."""
-    b = x.shape[0]
-    x = kernel_width(x)
-    sels = [s if isinstance(s, (list, tuple)) else [s]
-            for s in (sels if sels is not None else [None] * b)]
-    bw = torch.stack([torch.clamp_min(compute_bandwidth(
-        x[i], num_samples, np.float32(quantile), generator=generator,
-        sel=sels[i][0]), _MIN_BANDWIDTH) for i in range(b)])
-    shifted = _iterate_until(
-        lambda cur: mean_shift_step_batched(cur, x, bw), x, iterations, tol)
-    bw_host = bw.tolist()
-    labels, nums = [], np.zeros((b,), np.int64)
-    capped = np.zeros((b,), bool)
-    bw_capped = np.zeros((b,), bool)
-    for i in range(b):
-        lab, mask, num = nms(shifted[i], x[i], bw_host[i])
-        if num > max_clusters:
-            first = MeanShiftResult(shifted[i], lab, mask, num, bw_host[i],
-                                    np.float32(quantile))
-            attempt = _attempts(x[i], sels[i], num_samples=num_samples,
-                                iterations=iterations, tol=tol,
-                                generator=generator)
-            res = _guarded(x[i], x.shape[-1], first, attempt,
-                           num_samples=num_samples,
-                           max_clusters=max_clusters,
-                           retry_factor=retry_factor)
-            lab, num = res.labels, res.num_clusters
-            capped[i], bw_capped[i] = res.capped, res.bw_capped
-        labels.append(lab)
-        nums[i] = num
-    return (torch.stack(labels), torch.as_tensor(nums),
-            {"capped": capped, "bw_capped": bw_capped})
+    pending = cluster_batch_async(x, num_samples=num_samples,
+                                  quantile=quantile, iterations=iterations,
+                                  tol=tol, generator=generator, sels=sels)
+    return cluster_batch_finalize(pending, num_samples=num_samples,
+                                  quantile=quantile, iterations=iterations,
+                                  max_clusters=max_clusters,
+                                  retry_factor=retry_factor, tol=tol)

@@ -1,0 +1,199 @@
+"""Dataset loaders for the two h5 schemas and a batch loader.
+
+A copy of `sednet_tpu/data/datasets.py` (`_H5Dataset`, `ParseNetDataset`,
+`EdgeDataset`, `BatchLoader`) without its C++ preprocessing branch: items
+take the numpy route the JAX package takes with `use_native=False`.
+
+Reference schemas:
+  * ParseNet: data_parsenet/{train,test}_data.h5 with keys points/labels/
+    normals/prim (reference: src/dataset_segments.py:362-375).
+  * SED-Net edge set: data/{train,test}_data_withEdge.h5 (same keys) plus
+    data/{split}_My_Edge.h5 with keys label (per-point edge 0/1) and W
+    (per-point BCE weight) (reference: src/dataset_segments_my.py:385-416).
+
+Per-item pipeline: mean-centre (at load) -> max-extent normalise ->
+[train] augment -> PCA canonical alignment -> optional noise
+(reference: src/dataset_segments.py:390-463).
+
+Each item is a dict of numpy arrays: points (N,3) f32, normals (N,3) f32,
+labels (N,) i32 canonical instance ids, prim (N,) i32 raw type labels,
+edges (N,) i32, edges_w (N,) f32. Datasets without edge supervision return
+zero edges/edges_w (reference: dataset_segments.py:458-459).
+
+Reading an h5 file needs `h5py`, imported where a file is read, so that
+the package imports without it; `_H5Dataset` takes arrays in memory.
+"""
+from __future__ import annotations
+
+import os
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from sednet_tpu_torch.data.augment import (Augmentor, along_normal_noise,
+                                           gaussian_noise)
+from sednet_tpu_torch.data.geometry import EPS, pca_align
+from sednet_tpu_torch.data.labels import canonicalize_instance_labels
+
+
+class _H5Dataset:
+    """Shared per-item pipeline over in-memory arrays."""
+
+    def __init__(self, points, labels, normals, prim, edges=None, edges_w=None,
+                 edges1w=None, *, train=False, augment=True, noise=False,
+                 noise_level=0, num_points=10000, max_segments=50, seed=0):
+        self.points = points.astype(np.float32)
+        means = self.points.mean(1, keepdims=True)
+        self.points -= means
+        # the optional "edge" channel is a separate edge cloud, centred
+        # with the same per-shape mean as the points
+        # (reference: src/dataset_segments_my.py:395-410)
+        self.edges1w = (None if edges1w is None
+                        else edges1w.astype(np.float32) - means)
+        self.labels = labels
+        self.normals = None if normals is None else normals.astype(np.float32)
+        self.prim = prim
+        self.edges = edges
+        self.edges_w = edges_w
+        self.train = train
+        self.augment = augment and train
+        self.noise = noise
+        self.noise_level = noise_level
+        self.num_points = num_points
+        self.max_segments = max_segments
+        self.rng = np.random.RandomState(seed)
+        self.augmentor = Augmentor(self.rng)
+
+    def __len__(self):
+        return self.points.shape[0]
+
+    def __getitem__(self, index: int) -> dict:
+        pts = self.points[index].copy()
+        nrm = None if self.normals is None else self.normals[index].copy()
+        e1w = (None if self.edges1w is None
+               else self.edges1w[index].copy())
+        extent = pts.max(0) - pts.min(0)
+        pts = pts / (extent.max() + EPS)
+        if e1w is not None:
+            # the edge cloud rides the same frame as the points: extent
+            # scale, augmentation draws and PCA rotation (reference:
+            # src/dataset_segments_my.py:430-462)
+            e1w = e1w / (extent.max() + EPS)
+        if self.augment:
+            if e1w is not None:
+                pts, nrm, e1w = self.augmentor(pts, nrm, e1w)
+            else:
+                pts, nrm = self.augmentor(pts, nrm)
+        pts, nrm, r = pca_align(pts, nrm)
+        if e1w is not None:
+            e1w = (e1w @ r.T).astype(np.float32)
+
+        if self.noise:
+            if self.noise_level == -1:
+                pts, nrm = along_normal_noise(pts, nrm, self.rng)
+            else:
+                pts = gaussian_noise(pts, self.noise_level, self.rng)
+
+        n = pts.shape[0]
+        item = {
+            "points": pts.astype(np.float32),
+            "normals": (np.zeros((n, 3), np.float32) if nrm is None
+                        else nrm.astype(np.float32)),
+            "labels": canonicalize_instance_labels(
+                self.labels[index], self.max_segments),
+            "prim": self.prim[index].astype(np.int32),
+            "edges": (np.zeros((n,), np.int32) if self.edges is None
+                      else self.edges[index].astype(np.int32)),
+            "edges_w": (np.zeros((n,), np.float32) if self.edges_w is None
+                        else self.edges_w[index].astype(np.float32)),
+        }
+        if self.train and self.num_points < n:
+            sel = self.rng.permutation(n)[: self.num_points]
+            item = {k: v[sel] for k, v in item.items()}
+        elif self.train:
+            sel = self.rng.permutation(n)
+            item = {k: v[sel] for k, v in item.items()}
+        if e1w is not None:
+            # a separate cloud: its rows are not the shape's points, so the
+            # per-point shuffle leaves it alone
+            item["edges1w"] = e1w
+        return item
+
+
+def _h5_arrays(path: str, keys: Sequence[str]):
+    import h5py
+
+    with h5py.File(path, "r") as hf:
+        return [np.array(hf.get(k)) if hf.get(k) is not None else None
+                for k in keys]
+
+
+class ParseNetDataset(_H5Dataset):
+    """data_parsenet/{split}_data.h5 (reference: src/dataset_segments.py:331)."""
+
+    def __init__(self, prefix: str, *, train: bool, normals: bool = True,
+                 **kw):
+        split = "train" if train else "test"
+        path = os.path.join(prefix, "data_parsenet", f"{split}_data.h5")
+        pts, labels, nrm, prim = _h5_arrays(
+            path, ["points", "labels", "normals", "prim"])
+        super().__init__(pts, labels, nrm if normals else None, prim,
+                         train=train, **kw)
+
+
+class EdgeDataset(_H5Dataset):
+    """data/{split}_data_withEdge.h5 + data/{split}_My_Edge.h5
+    (reference: src/dataset_segments_my.py:360). ret_edges1w also loads
+    the optional "edge" edge-cloud channel (reference :394-397,409-410)."""
+
+    def __init__(self, prefix: str, *, train: bool, normals: bool = True,
+                 ret_edges1w: bool = False, **kw):
+        split = "train" if train else "test"
+        path = os.path.join(prefix, "data", f"{split}_data_withEdge.h5")
+        keys = ["points", "labels", "normals", "prim"]
+        if ret_edges1w:
+            keys.append("edge")
+        arrays = _h5_arrays(path, keys)
+        pts, labels, nrm, prim = arrays[:4]
+        edges1w = arrays[4] if ret_edges1w else None
+        # the test split may lack its edge labels (zero placeholders on an
+        # eval-only machine); a train split without them fails loudly
+        edge_path = os.path.join(prefix, "data", f"{split}_My_Edge.h5")
+        if os.path.exists(edge_path) or train:
+            edges, edges_w = _h5_arrays(edge_path, ["label", "W"])
+        else:
+            edges = edges_w = None
+        super().__init__(pts, labels, nrm if normals else None, prim,
+                         edges=edges, edges_w=edges_w, edges1w=edges1w,
+                         train=train, **kw)
+
+
+class BatchLoader:
+    """Batch iterator producing stacked numpy dicts, shuffled or in order
+    (reference: the DataLoader of train_sed_net.py:185-187)."""
+
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
+                 drop_last: bool = True, seed: int = 0, starts: int = 0):
+        """starts: skip the first `starts` items (sequential eval resume,
+        reference: generate_predictions_aug.py:69,176)."""
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.starts = starts
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        n = len(self.dataset) - self.starts
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict]:
+        order = np.arange(self.starts, len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start: start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                return
+            items = [self.dataset[int(i)] for i in idx]
+            yield {k: np.stack([it[k] for it in items]) for k in items[0]}

@@ -1,12 +1,14 @@
 """Synthetic CAD-like shapes assembled from analytic primitives.
 
-A numpy copy of `sednet_tpu/data/synthetic.py` (samplers and
-`make_synthetic_shape`): the same draws from the same
+A numpy copy of `sednet_tpu/data/synthetic.py` (samplers,
+`make_synthetic_shape` and the h5 writers): the same draws from the same
 `np.random.RandomState` in the same order, so that one seed gives both
 packages the same shapes. Type ids follow the reference vocabulary
 (src/segment_utils.py:156-164): 1 plane, 3 cone, 4 cylinder, 5 sphere.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -130,3 +132,62 @@ def make_synthetic_shape(rng, n_points: int = 10000, n_segments: int | None = No
         "edges_w": edges_w,
         "params": params,
     }
+
+
+def _stack_shapes(rng, n_shapes, n_points):
+    shapes = [make_synthetic_shape(rng, n_points) for _ in range(n_shapes)]
+    return {k: np.stack([s[k] for s in shapes]) for k in
+            ["points", "normals", "labels", "prim", "edges", "edges_w"]}
+
+
+def write_parsenet_h5(root: str, *, n_shapes: int = 4, n_points: int = 512,
+                      seed: int = 0):
+    """Write data_parsenet/{train,test}_data.h5 in the reference schema
+    (needs h5py)."""
+    import h5py
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "data_parsenet"), exist_ok=True)
+    for split in ("train", "test"):
+        d = _stack_shapes(rng, n_shapes, n_points)
+        with h5py.File(os.path.join(root, "data_parsenet", f"{split}_data.h5"),
+                       "w") as hf:
+            hf.create_dataset("points", data=d["points"])
+            hf.create_dataset("labels", data=d["labels"])
+            hf.create_dataset("normals", data=d["normals"])
+            hf.create_dataset("prim", data=d["prim"])
+    return root
+
+
+def write_edge_h5(root: str, *, n_shapes: int = 4, n_points: int = 512,
+                  seed: int = 1):
+    """Write data/{train,test}_data_withEdge.h5 + data/{split}_My_Edge.h5
+    (needs h5py)."""
+    import h5py
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    for split in ("train", "test"):
+        d = _stack_shapes(rng, n_shapes, n_points)
+        with h5py.File(
+                os.path.join(root, "data", f"{split}_data_withEdge.h5"), "w") as hf:
+            hf.create_dataset("points", data=d["points"])
+            hf.create_dataset("labels", data=d["labels"])
+            hf.create_dataset("normals", data=d["normals"])
+            hf.create_dataset("prim", data=d["prim"])
+            # "edge" = a separate cloud of points ON the shape's edges,
+            # resampled to n_points per shape (reference schema:
+            # src/dataset_segments_my.py:394-397)
+            edge_clouds = np.zeros_like(d["points"])
+            for i in range(d["points"].shape[0]):
+                on_edge = np.nonzero(d["edges"][i])[0]
+                if on_edge.size == 0:
+                    on_edge = np.arange(d["points"].shape[1])
+                sel = rng.choice(on_edge, d["points"].shape[1], replace=True)
+                edge_clouds[i] = d["points"][i, sel]
+            hf.create_dataset("edge", data=edge_clouds)
+        with h5py.File(os.path.join(root, "data", f"{split}_My_Edge.h5"),
+                       "w") as hf:
+            hf.create_dataset("label", data=d["edges"])
+            hf.create_dataset("W", data=d["edges_w"])
+    return root

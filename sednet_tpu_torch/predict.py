@@ -1,6 +1,7 @@
-"""Inference: the headline pipeline and the reference-default eval.
+"""Inference: the headline pipeline, the reference-default eval and the
+predict CLI.
 
-Counterpart of `bench.py:157-182` and `sednet_tpu/predict.py:50-537`:
+Counterpart of `bench.py:157-182` and `sednet_tpu/predict.py`:
 
   * `segment_batch`, the headline: the `inst` forward, L2-normalised
     embeddings, guarded mean-shift per shape under the `ms_*` fields of a
@@ -12,36 +13,63 @@ Counterpart of `bench.py:157-182` and `sednet_tpu/predict.py:50-537`:
     `cfg.fused_encoder`), HPNet spectral enrichment of the raw embedding
     per shape (`spectral_embed`, `hpnet_process`), `cluster_batch` (kernel
     K2b, batch-global tol exit, guarded retries per shape) and the
-    Hungarian/chamfer-recall metrics.
+    Hungarian/chamfer-recall metrics. It is `predict_shapes_finalize`
+    of `predict_shapes_async`: the device half (forwards, enrichment,
+    bandwidths and shift loop) reads back only what the LOBPCG solve
+    reads, and the host half (NMS and the cluster counts, guarded retries,
+    the transfers and the metrics) runs on a side stream that waits for
+    the batch's device half alone, so that it overlaps the next batch's
+    device half (`predict_shapes_stream`, `predict_loader`);
+  * `run_prediction` and `main`, the CLI (`python -m
+    sednet_tpu_torch.predict <cfg> [NoSave] [multi_vote] [fold5drop]
+    [postproc] [--starts S] [--batch-size B] [--mesh N]`): a ParseNet- or
+    Edge-schema test set (h5, read with h5py) through the double-buffered
+    loop `predict_loader`, with the reference's txt dumps
+    (`save_shape_outputs`) and, with `postproc`, the fitted primitives,
+    intersection curves, corners and meshes (`run_postproc`).
 
-The JAX package's async/finalize split of `predict_shapes` is one call
-here. Its random inputs (the LOBPCG start block and the bandwidth
-subsamples of each shape) come from a `torch.Generator`, or are injected
-(`x0s`, `sels`) by the tests. Its stages run inside
-`torch.profiler.record_function` ranges named `STAGES`, so that a profile
-of one call gives each stage's host and device time.
+Random inputs (each shape's LOBPCG start block, the bandwidth subsamples,
+the retries' subsamples) come from one `torch.Generator` a batch
+(`batch_generator`), drawn in the same order whether the halves of two
+batches interleave or not, and whether a shape's eigenvectors come from
+the cache or not; the tests inject them (`x0s`, `sels`). The stages run
+inside `torch.profiler.record_function` ranges named `STAGES`, so that a
+profile of one call gives each stage's host and device time.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import functools
+import logging
 import os
+import sys
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from sednet_tpu_torch.cluster.mean_shift import cluster_batch, guard_mean_shift
+from sednet_tpu_torch.cluster.mean_shift import (cluster_batch_async,
+                                                 cluster_batch_finalize,
+                                                 guard_mean_shift)
 from sednet_tpu_torch.cluster.spectral import (_entropy_weighted_concat,
                                                compute_entropy,
                                                matfree_matvec,
                                                normal_affinity_topk,
                                                top_eigvecs)
-from sednet_tpu_torch.config import Config
-from sednet_tpu_torch.data import (EVAL_STREAM_SEED, make_synthetic_shape,
-                                   normalize_points, pca_align)
+from sednet_tpu_torch.config import Config, load_config
+from sednet_tpu_torch.data import (EVAL_STREAM_SEED, BatchLoader, EdgeDataset,
+                                   ParseNetDataset, make_synthetic_shape,
+                                   normalize_points, pca_align,
+                                   project_types_fitting)
+from sednet_tpu_torch.device import resolve_device
 from sednet_tpu_torch.metrics import siou_matched_segments_usecd_batch
 from sednet_tpu_torch.models.sednet import apply_fused
 from sednet_tpu_torch.ops.knn import knn_indices, knn_indices_points_normals
-from sednet_tpu_torch.weights import load_npz
+from sednet_tpu_torch.utils import visual_labels
+from sednet_tpu_torch.weights import load_checkpoint, load_npz
+
+logger = logging.getLogger("sednet_tpu_torch.predict")
 
 # bench.py:173 clusters with 5000 samples; the rest are Config's defaults
 HEADLINE = Config(ms_num_samples=5000)
@@ -273,21 +301,28 @@ def enrich_embedding(embedding, xyz, normals, cfg: Config, *, shape_id=None,
                                         ent)
 
 
-@torch.no_grad()
-def predict_shapes(model_type, model_inst, batch: dict, cfg: Config, *,
-                   generator=None, multi_vote: bool = False,
-                   fold5drop: bool = False,
-                   cache: SpectralCache | None = None, shape_ids=None,
-                   tta_fn=None, forward_fn=None, x0s=None, sels=None):
-    """The reference-default eval of a batch (see the module docstring).
+def batch_generator(seed: int, k: int | None = None) -> torch.Generator:
+    """The generator of one batch's random inputs: seeded from `seed`
+    alone (`run_prediction` gives every batch this one, as the JAX package
+    gives every batch the same key), or from (seed, k) for batch k of
+    `predict_shapes_stream` (the JAX package's fold_in(key, k))."""
+    if k is not None:
+        seed = int(np.random.SeedSequence((seed, k)).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
 
-    batch: numpy "points", "normals" (B, N, 3), "labels", "prim" (B, N).
-    The models' device runs everything but the Hungarian assignment.
-    Pass tta_fn / forward_fn to reuse them across calls; x0s / sels inject
-    each shape's LOBPCG start block and bandwidth subsamples (a tensor, or
-    one per clustering attempt). Returns one dict per shape: cluster_ids,
-    pred_primitives, edge_prob, inst_iou, type_iou, inst_recall,
-    num_clusters, guard_capped, guard_bw_capped."""
+
+@torch.no_grad()
+def predict_shapes_async(model_type, model_inst, batch: dict, cfg: Config, *,
+                         generator=None, multi_vote: bool = False,
+                         fold5drop: bool = False,
+                         cache: SpectralCache | None = None, shape_ids=None,
+                         tta_fn=None, forward_fn=None, x0s=None,
+                         sels=None) -> dict:
+    """The device half of `predict_shapes` (`sednet_tpu/predict.py:255`):
+    the forwards, the enrichment (its LOBPCG solve reads back to the
+    host), the bandwidths and the shift loop (`cluster_batch_async`, no
+    host read), the type argmax and the edge softmax. Returns the pending
+    dict for `predict_shapes_finalize`."""
     dev = next(model_inst.parameters()).device
     pts = np.asarray(batch["points"], np.float32)
     nrm_np = np.asarray(batch["normals"], np.float32)
@@ -306,34 +341,79 @@ def predict_shapes(model_type, model_inst, batch: dict, cfg: Config, *,
     with record_function("predict_shapes/inst_forward"):
         _, embedding, edge_logits = forward_fn(x, idx1)
 
-    b = x.shape[0]
+    b, n = x.shape[:2]
     xyz = x[..., :3]
     nrm = x[..., 3:6] if x.shape[-1] >= 6 else torch.from_numpy(nrm_np).to(dev)
     if cfg.hpnet_embed:
-        emb_n = torch.stack([enrich_embedding(
-            embedding[i], xyz[i], nrm[i], cfg,
-            shape_id=shape_ids[i] if shape_ids is not None else None,
-            cache=cache, x0=x0s[i] if x0s is not None else None,
-            generator=generator) for i in range(b)])
+        embs = []
+        for i in range(b):
+            # drawn even when the cache holds the shape, so that the later
+            # draws do not depend on the cache
+            x0 = x0s[i] if x0s is not None else torch.randn(
+                (n, cfg.spectral_eigvecs), generator=generator)
+            embs.append(enrich_embedding(
+                embedding[i], xyz[i], nrm[i], cfg, x0=x0, cache=cache,
+                shape_id=shape_ids[i] if shape_ids is not None else None))
+        emb_n = torch.stack(embs)
     else:
         emb_n = embedding / torch.clamp_min(
             torch.linalg.vector_norm(embedding, dim=-1, keepdim=True), 1e-12)
 
+    kw = cluster_settings(cfg, cfg.num_points)
     with record_function("predict_shapes/cluster_batch"):
-        labels, nums, flags = cluster_batch(
+        clusters = cluster_batch_async(
             emb_n.contiguous(), generator=generator, sels=sels,
-            **cluster_settings(cfg, cfg.num_points))
-        labels_np = labels.cpu().numpy()
-    pred_prim = type_lp.argmax(-1).cpu().numpy()
-    edge_prob = (torch.softmax(edge_logits, -1).cpu().numpy()
-                 if edge_logits is not None else
-                 np.zeros(pred_prim.shape + (2,), np.float32))
-    with record_function("predict_shapes/metrics"):
-        mets = siou_matched_segments_usecd_batch(
-            [np.asarray(t).astype(np.int64) for t in batch["labels"]],
-            list(labels_np), list(pred_prim),
-            [np.asarray(p).astype(np.int64) for p in batch["prim"]],
-            list(pts), device=dev)
+            num_samples=kw["num_samples"], quantile=kw["quantile"],
+            iterations=kw["iterations"], tol=kw["tol"])
+    pending = {"batch": batch, "cfg": cfg, "device": dev,
+               "clusters": clusters,
+               "pred_prim": type_lp.argmax(-1),
+               "edge_prob": (torch.softmax(edge_logits, -1)
+                             if edge_logits is not None else None),
+               "ready": None}
+    if dev.type == "cuda":
+        pending["ready"] = torch.cuda.Event()
+        pending["ready"].record()
+    return pending
+
+
+@contextlib.contextmanager
+def _after(ready, device):
+    """Run the block on a side stream that waits for the event `ready`
+    (the end of one batch's device half) and nothing enqueued after it."""
+    if ready is None:
+        yield
+        return
+    side = torch.cuda.Stream(device=device)
+    side.wait_event(ready)
+    with torch.cuda.stream(side):
+        yield
+
+
+@torch.no_grad()
+def predict_shapes_finalize(pending: dict) -> list:
+    """The host half of `predict_shapes` (`sednet_tpu/predict.py:420`):
+    NMS with one read of the cluster counts and the rare guarded retries
+    (`cluster_batch_finalize`), the transfers and the metrics, on a side stream behind the batch's device half.
+    Returns one dict per shape: cluster_ids, pred_primitives, edge_prob,
+    inst_iou, type_iou, inst_recall, num_clusters, guard_capped,
+    guard_bw_capped."""
+    batch, cfg, dev = pending["batch"], pending["cfg"], pending["device"]
+    with _after(pending["ready"], dev):
+        with record_function("predict_shapes/cluster_batch"):
+            labels, nums, flags = cluster_batch_finalize(
+                pending["clusters"], **cluster_settings(cfg, cfg.num_points))
+            labels_np = labels.cpu().numpy()
+        pred_prim = pending["pred_prim"].cpu().numpy()
+        edge_prob = (pending["edge_prob"].cpu().numpy()
+                     if pending["edge_prob"] is not None else
+                     np.zeros(pred_prim.shape + (2,), np.float32))
+        with record_function("predict_shapes/metrics"):
+            mets = siou_matched_segments_usecd_batch(
+                [np.asarray(t).astype(np.int64) for t in batch["labels"]],
+                list(labels_np), list(pred_prim),
+                [np.asarray(p).astype(np.int64) for p in batch["prim"]],
+                list(np.asarray(batch["points"], np.float32)), device=dev)
     return [{"cluster_ids": labels_np[i],
              "pred_primitives": pred_prim[i],
              "edge_prob": edge_prob[i],
@@ -342,4 +422,274 @@ def predict_shapes(model_type, model_inst, batch: dict, cfg: Config, *,
              "num_clusters": int(nums[i]),
              "guard_capped": bool(flags["capped"][i]),
              "guard_bw_capped": bool(flags["bw_capped"][i])}
-            for i in range(b)]
+            for i in range(len(labels_np))]
+
+
+def predict_shapes(model_type, model_inst, batch: dict, cfg: Config, *,
+                   generator=None, multi_vote: bool = False,
+                   fold5drop: bool = False,
+                   cache: SpectralCache | None = None, shape_ids=None,
+                   tta_fn=None, forward_fn=None, x0s=None, sels=None):
+    """The reference-default eval of a batch (see the module docstring):
+    `predict_shapes_finalize(predict_shapes_async(...))`.
+
+    batch: numpy "points", "normals" (B, N, 3), "labels", "prim" (B, N).
+    The models' device runs everything but the Hungarian assignment.
+    Pass tta_fn / forward_fn to reuse them across calls; x0s / sels inject
+    each shape's LOBPCG start block and bandwidth subsamples (a tensor, or
+    one per clustering attempt). Returns one dict per shape (see
+    `predict_shapes_finalize`)."""
+    return predict_shapes_finalize(predict_shapes_async(
+        model_type, model_inst, batch, cfg, generator=generator,
+        multi_vote=multi_vote, fold5drop=fold5drop, cache=cache,
+        shape_ids=shape_ids, tta_fn=tta_fn, forward_fn=forward_fn, x0s=x0s,
+        sels=sels))
+
+
+def predict_shapes_stream(model_type, model_inst, batches, cfg: Config, *,
+                          seed: int = 0, generators=None,
+                          multi_vote: bool = False, fold5drop: bool = False,
+                          cache: SpectralCache | None = None, tta_fn=None,
+                          forward_fn=None):
+    """Double-buffered eval over a stream of batches
+    (`sednet_tpu/predict.py:540`): batch k+1's device half is enqueued
+    before batch k's host half runs. Each batch's outputs equal those of
+    `predict_shapes` on that batch with generator `generators(k)`, by
+    default `batch_generator(seed, k)`.
+
+    batches: an iterable of batch dicts, or of (batch dict, shape ids)
+    tuples when a SpectralCache is in play. Yields one result list per
+    batch, in order."""
+    if generators is None:
+        generators = functools.partial(batch_generator, seed)
+    if tta_fn is None:
+        tta_fn = make_tta_type_log_prob(model_type, cfg, multi_vote,
+                                        fold5drop)
+    if forward_fn is None:
+        forward_fn = make_forward(model_inst, fused=cfg.fused_encoder)
+    pending = None
+    for k, item in enumerate(batches):
+        batch_k, sids = item if isinstance(item, tuple) else (item, None)
+        nxt = predict_shapes_async(
+            model_type, model_inst, batch_k, cfg, generator=generators(k),
+            cache=cache, shape_ids=sids, tta_fn=tta_fn, forward_fn=forward_fn)
+        if pending is not None:
+            yield predict_shapes_finalize(pending)
+        pending = nxt
+    if pending is not None:
+        yield predict_shapes_finalize(pending)
+
+
+def save_shape_outputs(out_dir: str, shape_id, batch_i: dict, result: dict,
+                       save_gt: bool = True):
+    """The txt dumps of one shape in the reference's vocabulary
+    (generate_predictions_aug.py:416-437; `sednet_tpu/predict.py:585`):
+    the same eight files, names, formats and delimiters, through
+    np.savetxt."""
+    os.makedirs(out_dir, exist_ok=True)
+
+    def dump(name, arr, **kw):
+        np.savetxt(os.path.join(out_dir, f"{shape_id}_{name}.txt"), arr, **kw)
+
+    dump("inst", result["cluster_ids"], fmt="%d")
+    dump("type", result["pred_primitives"], fmt="%d")
+    if save_gt:
+        dump("GT_inst", batch_i["labels"], fmt="%d")
+        dump("GT_type", batch_i["prim"], fmt="%d")
+    pts = batch_i["points"]
+    dump("Vis_type", visual_labels(pts, result["pred_primitives"]),
+         fmt="%0.4f", delimiter=";")
+    dump("Vis_inst", visual_labels(pts, result["cluster_ids"]),
+         fmt="%0.4f", delimiter=";")
+    dump("edge", result["edge_prob"], fmt="%0.4f", delimiter=";")
+    dump("GT_points", np.concatenate([pts, batch_i["normals"]], -1),
+         fmt="%0.4f", delimiter=";")
+
+
+def run_postproc(out_dir: str, shape_id, batch_i: dict, result: dict):
+    """Fitted primitives, intersection curves, corners and trimmed meshes
+    of one shape from its predictions (reference:
+    Fitting_patches_and_edges/primitive_forward_v2.py __main__ and
+    arg2mesh; `sednet_tpu/predict.py:615`): writes
+    paras/param_{id}.txt, paras/param_inter_lines_{id}.json and
+    {id}_mesh/ under out_dir. Returns `process_shape`'s result."""
+    from sednet_tpu_torch.postproc import process_shape, save_shape_parameters
+    from sednet_tpu_torch.postproc.arg2mesh import arg2mesh
+
+    types = project_types_fitting(result["pred_primitives"].astype(np.int64))
+    res = process_shape(batch_i["points"].astype(np.float64),
+                        batch_i["normals"].astype(np.float64),
+                        result["cluster_ids"].astype(np.int64), types)
+    save_shape_parameters(out_dir, shape_id, res)
+    arg2mesh(os.path.join(out_dir, f"{shape_id}_mesh"),
+             os.path.join(out_dir, "paras", f"param_{shape_id}.txt"),
+             os.path.join(out_dir, "paras",
+                          f"param_inter_lines_{shape_id}.json"))
+    return res
+
+
+def predict_loader(loader, cfg: Config, model_type, model_inst, *,
+                   save_viz: bool = True, multi_vote: bool = False,
+                   fold5drop: bool = False, out_dir=None, limit=None,
+                   postproc: bool = False):
+    """The test loop of `run_prediction` over a `BatchLoader` (its
+    `starts` offsets the shape ids), double-buffered as
+    `sednet_tpu/predict.py:743-762` through `predict_shapes_stream`: batch
+    k+1's device half is enqueued before batch k's host half, metric log
+    lines, txt dumps (a pool of 4
+    threads, drained after each batch so that an IO error surfaces there)
+    and, with `postproc`, `run_postproc`. Every batch draws from
+    `batch_generator(cfg.seed)`, so each batch's results equal those of
+    `predict_shapes` on it with that generator. `limit` stops after that
+    many shapes. Returns (summary, per-shape results)."""
+    out_dir = out_dir or "predictions/results"
+    cache = SpectralCache(os.path.join(out_dir, "normal_smooth_cache"),
+                          cfg.spectral_sigma, cfg.spectral_knn)
+    tta_fn = make_tta_type_log_prob(model_type, cfg, multi_vote, fold5drop)
+    forward_fn = make_forward(model_inst, fused=cfg.fused_encoder)
+    starts = loader.starts
+    all_metrics = []
+    fed = []        # (batch, shape ids) in the order the stream takes them
+    dump_pool = (concurrent.futures.ThreadPoolExecutor(max_workers=4)
+                 if save_viz else None)
+    dump_futs = []
+
+    def drain_dumps(done_only=True):
+        rest = []
+        for f in dump_futs:
+            if not done_only or f.done():
+                f.result()
+            else:
+                rest.append(f)
+        dump_futs[:] = rest
+
+    def feed():
+        enq = starts
+        for batch in loader:
+            ids = list(range(enq, enq + batch["points"].shape[0]))
+            enq += len(ids)
+            fed.append((batch, ids))
+            yield batch, ids
+            if limit and enq - starts >= limit:
+                return
+
+    try:
+        stream = predict_shapes_stream(
+            model_type, model_inst, feed(), cfg,
+            generators=lambda k: batch_generator(cfg.seed), cache=cache,
+            tta_fn=tta_fn, forward_fn=forward_fn)
+        for k, results in enumerate(stream):
+            batch, ids = fed[k]
+            fed[k] = None
+            if limit:
+                results = results[: max(limit - len(all_metrics), 0)]
+            for i, r in enumerate(results):
+                logger.info("ID:%d | inst_iou: %s type_iou: %s "
+                            "inst_recall: %s%s", ids[i], r["inst_iou"],
+                            r["type_iou"], r["inst_recall"],
+                            " [GUARD-CAPPED]" if r["guard_capped"] else "")
+                all_metrics.append(r)
+                item = {key: batch[key][i] for key in batch}
+                if save_viz:
+                    dump_futs.append(dump_pool.submit(
+                        save_shape_outputs, out_dir, ids[i], item, r))
+                if postproc:
+                    run_postproc(out_dir, ids[i], item, r)
+            if dump_pool is not None:
+                drain_dumps(done_only=True)
+        if dump_pool is not None:
+            drain_dumps(done_only=False)
+    finally:
+        if dump_pool is not None:
+            dump_pool.shutdown()
+
+    summary = {
+        "inst_iou": float(np.mean([m["inst_iou"] for m in all_metrics])),
+        "type_iou": float(np.mean([m["type_iou"] for m in all_metrics])),
+        "inst_recall": float(np.mean([m["inst_recall"]
+                                      for m in all_metrics])),
+        "n_shapes": len(all_metrics),
+        # shapes where the guarded mean-shift deviated from the
+        # reference's unbounded retry (the 16-try cap, the bandwidth's
+        # lane cap)
+        "guard_capped": int(sum(m["guard_capped"] for m in all_metrics)),
+        "guard_bw_capped": int(sum(m["guard_bw_capped"]
+                                   for m in all_metrics)),
+    }
+    logger.info("===========> %s", summary)
+    return summary, all_metrics
+
+
+def run_prediction(cfg: Config, *, data_root=".", save_viz=True,
+                   multi_vote=False, fold5drop=False, out_dir=None,
+                   batch_size=8, limit=None, params_type=None,
+                   params_inst=None, postproc=False, starts=0,
+                   mesh_devices=0, device=None):
+    """The test loop of the CLI (`sednet_tpu/predict.py:635`). The dataset
+    follows cfg.dataset: "my" tests on the SED-Net EdgeDataset set, anything
+    else on ParseNet (reference: generate_predictions_aug.py:90-98,176),
+    read from h5 files under data_root (h5py). `starts` skips the first
+    shapes and offsets the logged ids; `limit` defaults to cfg.num_test.
+
+    params_type / params_inst: loaded port SEDNet models, else read from
+    cfg.pretrain_model_path (the TYPE model) and
+    cfg.pretrain_model_type_path (the INST model), as the reference maps
+    them. device None is the CUDA card. Returns (summary, per-shape
+    results) of `predict_loader`."""
+    if mesh_devices and mesh_devices > 1:
+        raise NotImplementedError(
+            "mesh_devices > 1: sharding shape batches over several cards is "
+            "ROADMAP queue 1 item 9")
+    logging.basicConfig(level=logging.INFO)
+    dev = resolve_device(device)
+    if params_type is None:
+        params_type = load_checkpoint(cfg.pretrain_model_path, cfg, dev)
+    if params_inst is None:
+        params_inst = load_checkpoint(cfg.pretrain_model_type_path, cfg, dev)
+    for model in (params_type, params_inst):
+        if next(model.parameters()).device.type != dev.type:
+            raise ValueError(f"model on {next(model.parameters()).device}, "
+                             f"run on {dev}")
+    kind = EdgeDataset if cfg.dataset == "my" else ParseNetDataset
+    ds = kind(data_root, train=False, normals=cfg.normals,
+              num_points=cfg.num_points, max_segments=cfg.ms_max_clusters)
+    if limit is None and cfg.num_test:
+        limit = cfg.num_test
+    loader = BatchLoader(ds, batch_size, shuffle=False, drop_last=False,
+                         starts=starts)
+    return predict_loader(loader, cfg, params_type, params_inst,
+                          save_viz=save_viz, multi_vote=multi_vote,
+                          fold5drop=fold5drop, out_dir=out_dir, limit=limit,
+                          postproc=postproc)
+
+
+def main(argv=None):
+    """The CLI, with the reference's positional flags (readme.md:18-22):
+    <cfg> [NoSave] [multi_vote] [fold5drop], "postproc" anywhere after the
+    config; --starts S skips the first S test shapes, --batch-size B,
+    --mesh N (N > 1 is not ported)."""
+    argv = sys.argv[1:] if argv is None else argv
+    mesh_devices, starts, batch_size = 0, 0, 8
+    pos = []
+    it = iter(argv)
+    for a in it:
+        if a == "--mesh":
+            mesh_devices = int(next(it))
+        elif a == "--starts":
+            starts = int(next(it))
+        elif a == "--batch-size":
+            batch_size = int(next(it))
+        else:
+            pos.append(a)
+    cfg = load_config(pos[0])
+    save_viz = not (len(pos) > 1 and pos[1] == "NoSave")
+    multi_vote = len(pos) > 2 and pos[2] == "multi_vote"
+    fold5drop = len(pos) > 3 and pos[3] == "fold5drop"
+    postproc = "postproc" in pos[1:]
+    run_prediction(cfg, save_viz=save_viz, multi_vote=multi_vote,
+                   fold5drop=fold5drop, postproc=postproc, starts=starts,
+                   mesh_devices=mesh_devices, batch_size=batch_size)
+
+
+if __name__ == "__main__":
+    main()

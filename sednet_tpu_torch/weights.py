@@ -1,8 +1,11 @@
 """Carry the JAX package's flat `.npz` checkpoints into the PyTorch models.
 
 `sednet_tpu/train.py:248-262` (`save_params_npz`) writes one array per leaf
-under an "a/b/c" key, with a top-level prefix per model ("inst/", "type/").
-The torch modules keep the flax names, so the map is by name:
+under an "a/b/c" key: with a top-level prefix per model ("inst/", "type/")
+in a two-model checkpoint such as `checkpoints/bench_10k.npz`, under
+"params/" when it saved a flax variable dict, with no prefix when it saved
+one model's parameters. The torch modules keep the flax names, so the map
+is by name:
 
   a/b/kernel (C_in, C_out)  ->  a.b.weight (C_out, C_in)   (transposed)
   a/b/bias                  ->  a.b.bias
@@ -24,10 +27,11 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
 def params_from_flat(flat, prefix: str = "inst") -> dict:
-    """Map the `prefix/...` arrays of a flat checkpoint to a torch
-    state dict. Raises on a leaf it does not know or an empty prefix."""
+    """Map the `prefix/...` arrays of a flat checkpoint (every array when
+    prefix is "") to a torch state dict. Raises on a leaf it does not know
+    or when no key lies under the prefix."""
     sd = {}
-    head = prefix + "/"
+    head = prefix + "/" if prefix else ""
     for key in flat:
         if not key.startswith(head):
             continue
@@ -55,3 +59,22 @@ def load_npz(path: str, which: str = "inst", cfg: Config | None = None,
     with np.load(path) as flat:
         model.load_state_dict(params_from_flat(flat, which), strict=True)
     return model.to(dev).eval()
+
+
+def load_checkpoint(path: str, cfg: Config | None = None,
+                    device=None) -> SEDNet:
+    """One model from the checkpoint at `path`, as `sednet_tpu/train.py:265
+    load_params` followed by `run_prediction`'s unwrap of "params" reads
+    it: a flat `.npz` of one model's parameters, with or without the
+    "params/" prefix. Orbax directories and the reference's `.pth` files
+    are not read yet (ROADMAP queue 1 item 10)."""
+    if not path.endswith(".npz"):
+        kind = ("reference .pth" if path.endswith((".pth", ".pt"))
+                else "orbax directory")
+        raise NotImplementedError(
+            f"{path!r}: the port reads flat .npz checkpoints only; the "
+            f"{kind} import is ROADMAP queue 1 item 10")
+    with np.load(path) as flat:
+        prefix = "params" if any(k.startswith("params/")
+                                 for k in flat.files) else ""
+    return load_npz(path, prefix, cfg, device)

@@ -747,3 +747,75 @@ def test_matfree_pallas_on_card_gives_cpu_labels(cuda):
     (lc, nc), (lg, ng) = out["cpu"], out[str(cuda)]
     assert nc == ng == len(np.unique(lab))
     assert len(set(zip(lc.tolist(), lg.tolist()))) == nc
+
+
+# cluster_batch through its async half (the tol exit as a flag on the
+# device, every step launched) and its finalize half against the loop that
+# reads each step's movement back and breaks, at the eval's shape (2 x 10000
+# unit rows of E = 140, the HPNet-enriched width): the same shifted rows and
+# the same labels. The blobs are tight, so the exit fires within the 50 steps.
+@pytest.mark.cuda
+def test_cluster_batch_async_finalize_matches_host_loop(cuda):
+    import importlib
+
+    ms = importlib.import_module("sednet_tpu_torch.cluster.mean_shift")
+    rng = np.random.RandomState(0)
+    centers = rng.randn(2, 8, 140)
+    x = np.stack([c[rng.randint(0, 8, 10000)] for c in centers])
+    x = x + 0.02 * rng.randn(*x.shape)
+    x = torch.from_numpy((x / np.linalg.norm(x, axis=-1, keepdims=True))
+                         .astype(np.float32)).to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    sels = [torch.randperm(10000, generator=gen)[:5000] for _ in range(2)]
+    kw = dict(num_samples=5000, quantile=0.015, iterations=50, tol=1e-6)
+    pending = ms.cluster_batch_async(x, sels=sels, **kw)
+    labels, nums, flags = ms.cluster_batch_finalize(pending, **kw)
+    xk = ms.kernel_width(x)
+    steps = []
+
+    def step(cur):
+        steps.append(1)
+        return ck.mean_shift_step_batched(cur, xk, pending.bandwidth)
+
+    shifted = ms._iterate_until(step, xk, 50, 1e-6)
+    assert len(steps) < 50
+    assert torch.equal(shifted, pending.shifted)
+    for i in range(2):
+        want, _, num = ms.nms(shifted[i], xk[i], pending.bandwidth[i].item())
+        assert num <= 49 and int(nums[i]) == num
+        assert torch.equal(labels[i], want)
+    assert not flags["capped"].any()
+
+
+# The stream (batch k+1's device half enqueued before batch k's host half,
+# which runs on a side stream) gives each batch what predict_shapes gives
+# it with the batch's generator.
+@pytest.mark.cuda
+def test_predict_shapes_stream_matches_per_batch_on_card(cuda):
+    import os
+
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.predict import (batch_generator, headline_shapes,
+                                          load_models, predict_shapes,
+                                          predict_shapes_stream)
+
+    n = 512
+    shapes, _ = headline_shapes(4, n)
+    batches = [{k: np.stack([s[k] for s in shapes[i:i + 2]])
+                for k in ("points", "normals", "labels", "prim")}
+               for i in (0, 2)]
+    cfg = Config(num_points=n, knn=16, hpnet_embed=True)
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "checkpoints", "bench_10k.npz")
+    models = load_models(ckpt, cfg, device=cuda)
+    streamed = list(predict_shapes_stream(models["type"], models["inst"],
+                                          iter(batches), cfg, seed=5))
+    for k, batch in enumerate(batches):
+        want = predict_shapes(models["type"], models["inst"], batch, cfg,
+                              generator=batch_generator(5, k))
+        for g, w in zip(streamed[k], want):
+            for name in ("cluster_ids", "pred_primitives", "num_clusters",
+                         "guard_capped", "guard_bw_capped", "inst_iou",
+                         "type_iou", "inst_recall"):
+                np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+            np.testing.assert_array_equal(g["edge_prob"], w["edge_prob"])

@@ -130,8 +130,22 @@ def test_compare_with_plain_flags_wrong_neighbours(rng):
     assert cmp["nbr_err"] > cmp["tol"] and cmp["max_abs_err"] == 0.0
 
 
+def _mean_shift_step_f64(q, x, bandwidth):
+    """One gaussian step in float64: the rows y (R, E) and |o| (R,), o the
+    weighted mean before normalisation."""
+    q, x = q.astype(np.float64), x.astype(np.float64)
+    k = np.exp(np.maximum((q @ x.T - 1.0) / bandwidth ** 2, -75.0))
+    o = (k @ x) / k.sum(1, keepdims=True)
+    norm = np.linalg.norm(o, axis=1)
+    return o / norm[:, None], norm
+
+
 # The step's exp argument is <= 0 and the output is unit-norm; the plain
 # version and the Pallas kernel differ only by summation order (atol 1e-5).
+# Each side is first held to the float64 step at the same 1e-5 (measured:
+# plain 2.4e-7, Pallas 1.6e-7), so that a failure names the side that
+# moved, its row and that row's |o| (a short weighted mean magnifies
+# rounding; |o| is down to 0.16 here).
 def test_mean_shift_step_plain_matches_pallas(rng):
     x = _unit(rng, 200, 32)
     q = _unit(rng, 200, 32)
@@ -139,7 +153,17 @@ def test_mean_shift_step_plain_matches_pallas(rng):
                                   jnp.float32(0.4), row_block=64,
                                   col_block=128, interpret=True)
     got = ck.mean_shift_step(torch.from_numpy(q), torch.from_numpy(x), 0.4)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    exact, norm = _mean_shift_step_f64(q, x, 0.4)
+    errs = {name: np.abs(np.asarray(side, np.float64) - exact).max(1)
+            for name, side in (("plain", got.numpy()),
+                               ("pallas", np.asarray(want)))}
+    report = {name: (float(e.max()), int(e.argmax()),
+                     float(norm[e.argmax()])) for name, e in errs.items()}
+    for name, e in errs.items():
+        assert e.max() <= 1e-5, f"{name} side moved: (err, row, |o|) " \
+            f"{report}"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               err_msg=f"(err, row, |o|) {report}")
 
 
 def test_mean_shift_step_batched_plain_matches_pallas(rng):

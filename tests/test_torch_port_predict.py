@@ -246,5 +246,6 @@ def test_load_config_reads_jax_config_files(tmp_path):
         for f in Config.__dataclass_fields__:
             assert getattr(cfg, f) == getattr(want, f), (name, f)
     path = tmp_path / "c.json"
-    path.write_text('{"knn": 16, "hpnet_embed": false, "lr": 0.1}')
-    assert load_config(str(path)) == Config(knn=16, hpnet_embed=False)
+    path.write_text('{"knn": 16, "hpnet_embed": false, "lr": 0.1, '
+                    '"not_a_field": 3}')
+    assert load_config(str(path)) == Config(knn=16, hpnet_embed=False, lr=0.1)
