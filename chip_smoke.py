@@ -71,7 +71,22 @@ is not 0):
              config at N = 32768, where the auto policy takes the
              matrix-free solver: shapes/s, stage times, launches, peak
              memory (below the 4 GiB of one dense 32768^2 affinity), metrics
-             held to the JAX package's numbers.
+             held to the JAX package's numbers;
+  train      the trainer's loop (`train.train_loader`, which `train.train`
+             runs over h5 sets read with h5py; this phase needs no h5py)
+             under the production config (configs/config_SEDNet_normal.yml:
+             4 x 10000 points, k 64, embed 128, AdamW), the inst model of
+             checkpoints/bench_10k.npz preloaded, for 8 steps and one eval
+             over synthetic clouds (a ParseNet set and an edge set, mixed)
+             in the port's array-backed datasets, checkpoints into
+             build/train_smoke/: every step's loss finite, the launches
+             (K1, K6 three a forward, K6b three a backward), K6b within its
+             rounding bound of its plain version at the three layer shapes
+             on the batch's real graphs (timed beside its bound, the plain
+             version and index_add_), the card's step against the CPU's on
+             one cloud with the same draws and graphs, the checkpoint
+             re-read giving the same forward; ms a step, shapes/s, peak
+             memory.
 
 The line before the last is the `kernels` summary, the last line the
 device record. Without a CUDA device, or outside a checkout of the repo,
@@ -79,6 +94,7 @@ it exits with an error and prints no result. nvcc's full register report
 is in `build.log` beside the built library.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -730,12 +746,12 @@ def _wrappers():
     from sednet_tpu_torch.ops import cuda_kernels as ck
     from sednet_tpu_torch.ops.flash_topk import flash_topk
     from sednet_tpu_torch.ops.fused_edgeconv import fused_edge_reductions
-    from sednet_tpu_torch.ops.graph import gather_reduce
+    from sednet_tpu_torch.ops.graph import gather_reduce, gather_reduce_backward
 
     return {"K1": flash_topk, "K2": ck.mean_shift_step,
             "K2b": ck.mean_shift_step_batched, "K3": ck.colmax,
             "K4": fused_edge_reductions, "K5": ck.segsum_sorted_scan,
-            "K6": gather_reduce}
+            "K6": gather_reduce, "K6b": gather_reduce_backward}
 
 
 def reset_counts():
@@ -1636,6 +1652,367 @@ def phase_predict_bigcloud(models, shapes, inputs):
     return rec
 
 
+TRAIN_SEED = 9            # the training clouds' stream (not EVAL_STREAM_SEED)
+TRAIN_SHAPES = 4          # clouds in each of the two training sets
+TRAIN_STEPS = 8           # two epochs of the two sets, mixed, in batches of 4
+TRAIN_LOSS_RTOL = 1e-4    # the card's step against the CPU's, same draws
+TRAIN_GRAD_RTOL = 1e-3    # per leaf, relative L2
+TRAIN_CKPT_TOL = 1e-6     # the forward of the re-read checkpoint
+# the training path's launches in one step (one forward and its backward)
+TRAIN_PER_STEP = {"K1": 3, "K2": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0,
+                  "K6": 3, "K6b": 3}
+
+
+def train_cfg(preload):
+    """configs/config_SEDNet_normal.yml, the production config (4 x 10000
+    points, mode 5, k 64, embed 128, AdamW at lr 1e-4 and weight decay
+    0.002, label smoothing 0.025, edge_topk 2000, ms_max_clusters 50), the
+    inst model of checkpoints/bench_10k.npz preloaded; eval at the last
+    step."""
+    import dataclasses
+    from sednet_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "config_SEDNet_normal.yml"))
+    want = dict(batch_size=4, num_points=N_POINTS, mode=5, normals=True,
+                knn=K, embed=128, optim="adamW", lr=1e-4, weight_decay=0.002,
+                smooth=0.025, edge_topk=2000, ms_max_clusters=50)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"train: the production config changed: {got}")
+    return dataclasses.replace(cfg, preload_model=True,
+                               pretrain_model_path=preload, eval_T=10 ** 6)
+
+
+def train_sets():
+    """Synthetic training clouds from TRAIN_SEED in the port's array-backed
+    datasets (the class under ParseNetDataset and EdgeDataset), train mode:
+    a ParseNet set (no edge labels) and an edge set, mixed, and a test set
+    of TRAIN_SHAPES clouds in eval mode."""
+    import numpy as np
+    from sednet_tpu_torch.data import MixedDataset, make_synthetic_shape
+    from sednet_tpu_torch.data.datasets import _H5Dataset
+
+    rng = np.random.RandomState(TRAIN_SEED)
+    keys = ("points", "labels", "normals", "prim", "edges", "edges_w")
+
+    def cloud_set(edges, **kw):
+        raw = [make_synthetic_shape(rng, n_points=N_POINTS)
+               for _ in range(TRAIN_SHAPES)]
+        arr = [np.stack([d[k] for d in raw]) for k in keys]
+        return _H5Dataset(*arr[:4], *(arr[4:] if edges else ()),
+                          num_points=N_POINTS, **kw)
+
+    mixed = MixedDataset(cloud_set(False, train=True),
+                         cloud_set(True, train=True))
+    return mixed, cloud_set(False, train=False)
+
+
+def check_gather_reduce_backward(name, a, idx, order, gen):
+    """K6b against gather_reduce_backward_plain on one layer's signed table,
+    graph and forward max, with cotangents drawn from `gen`: every element
+    within backward_error_bound (the rounding of two orders of the same
+    adds). Timed: K6b, the plain version, and index_add_ of the
+    precomputed (B N K, C) terms into (B N, C), the nearest library call,
+    which does less (no gather, no tie count). The bound counts a, mx, gs,
+    gsq, gmx, the int64 graph and the order read once and da written once,
+    and 6 operations a gathered value (a compare and an add counting ties;
+    two products and two adds forming and adding the term)."""
+    import torch
+    from sednet_tpu_torch.ops.graph import (backward_error_bound,
+                                            gather_neighbors,
+                                            gather_reduce_backward,
+                                            gather_reduce_backward_plain,
+                                            gather_reduce_plain)
+
+    b, n, c = a.shape
+    k = idx.shape[-1]
+    mx = gather_reduce_plain(a, idx)[2]
+    cot = [torch.randn((b, n, c), generator=gen).to(a.device)
+           for _ in range(3)]
+    da = gather_reduce_backward(a, idx, mx, *cot, order=order)
+    plain = gather_reduce_backward_plain(a, idx, mx, *cot)
+    bound = backward_error_bound(a, idx, mx, *cot)
+    torch.cuda.synchronize()
+    err = (da.double() - plain.double()).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"K6b {name}: {float(err.max())} above the "
+                             f"rounding bound (max {float(bound.max())})")
+    g = gather_neighbors(a, idx)
+    tie = g == mx[:, :, None, :]
+    cnt = tie.sum(2, dtype=a.dtype)
+    terms = (cot[0][:, :, None] + 2.0 * g * cot[1][:, :, None]
+             + torch.where(tie, (cot[2] / cnt.clamp_min(1.0))[:, :, None],
+                           0.0)).reshape(-1, c)
+    flat = (idx.clamp(0, n - 1) + n * torch.arange(
+        b, device=a.device)[:, None, None]).reshape(-1)
+    del g, tie
+    bms, by = bound_ms(6 * b * n * k * c,
+                       4 * 6 * b * n * c + 8 * idx.numel() + 4 * b * n)
+    out = {"case": name, "shape": [b, n, k, c],
+           "max_abs_err": float(err.max()),
+           "max_err_over_bound": float((err / bound.clamp_min(1e-30)).max()),
+           "ms": time_ms(lambda: gather_reduce_backward(a, idx, mx, *cot,
+                                                        order=order), reps=20),
+           "device_ms": burst_ms(lambda: gather_reduce_backward(
+               a, idx, mx, *cot, order=order)),
+           "plain_ms": time_ms(lambda: gather_reduce_backward_plain(
+               a, idx, mx, *cot), reps=5),
+           "library_ms": time_ms(lambda: torch.zeros(
+               (b * n, c), device=a.device).index_add_(0, flat, terms),
+               reps=10),
+           "library": "index_add_ of the precomputed terms (less work)",
+           "bound_ms": bms, "bound_by": by}
+    del terms, flat
+    return out
+
+
+class _Graphs:
+    """Inside `with`, the encoder's kNN graphs (`models.backbone`'s
+    knn_indices and knn_indices_points_normals) are recorded in call
+    order, or, given `replay`, replaced by those recorded graphs."""
+
+    def __init__(self, replay=None):
+        self.graphs, self.replay = [], replay
+
+    def __enter__(self):
+        from sednet_tpu_torch.models import backbone
+
+        self.saved = (backbone.knn_indices, backbone.knn_indices_points_normals)
+
+        def wrap(fn):
+            def call(x, *args, **kw):
+                self.graphs.append(
+                    fn(x, *args, **kw) if self.replay is None
+                    else self.replay[len(self.graphs)].to(x.device))
+                return self.graphs[-1]
+            return call
+
+        backbone.knn_indices, backbone.knn_indices_points_normals = map(
+            wrap, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from sednet_tpu_torch.models import backbone
+
+        backbone.knn_indices, backbone.knn_indices_points_normals = self.saved
+
+
+def card_vs_cpu_step(model, cfg, batch):
+    """One step's loss and gradients for the first cloud of `batch` on the
+    card (K1, K6, K6b) and on the CPU (the plain versions), from the same
+    parameters and the same triplet draws. Held to TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_RTOL: the CPU step on the card's three kNN graphs, so that
+    the two differ by the card's arithmetic (K6, K6b, the dense layers)
+    alone. Printed beside it: the CPU step on its own graphs (the plain
+    top-k), where K1's TF32 split swaps near-tie neighbours in a few rows,
+    which moves those rows' maxima and, through them, the global max's
+    argmax in a few of its 1024 channels; and the rows of each graph whose
+    neighbour set differs between the two."""
+    import copy
+
+    import torch
+    from sednet_tpu_torch import train as T
+    from sednet_tpu_torch.losses import TripletConfig
+    from sednet_tpu_torch.losses.embedding import sample_draws
+
+    one = {k: v[:1].cpu() for k, v in batch.items()}
+    draws = sample_draws(one["labels"], TripletConfig(
+        margin=cfg.triplet_margin, max_segments=cfg.ms_max_clusters),
+        torch.Generator().manual_seed(TRAIN_SEED))
+    cpu_model = copy.deepcopy(model).cpu()
+
+    def run(m, dev, replay=None):
+        m.zero_grad(set_to_none=True)
+        seen = {}   # the encoder's features and its global max's argmax
+        hooks = [m.encoder.register_forward_hook(
+                     lambda mod, i, o: seen.update(feats=o[1].detach().cpu())),
+                 m.encoder.gn_mlp1.register_forward_hook(
+                     lambda mod, i, o: seen.update(
+                         argmax=o.detach().relu().argmax(1).cpu()))]
+        with _Graphs(replay) as graphs:
+            total, _ = T.make_loss_fn(m, cfg)(
+                {k: v.to(dev) for k, v in one.items()}, draws)
+            total.backward()
+        for h in hooks:
+            h.remove()
+        grads = {k: p.grad.detach().cpu().double()
+                 for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return (float(total.detach()), grads, [g.cpu() for g in graphs.graphs],
+                seen)
+
+    def compare(card, cpu):
+        rel = {k: float((card[1][k] - cpu[1][k]).norm()
+                        / cpu[1][k].norm().clamp_min(1e-30)) for k in card[1]}
+        worst = max(rel, key=rel.get)
+        return {"loss": card[0], "cpu_loss": cpu[0],
+                "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+                "grad_rel_err_max": rel[worst], "grad_worst_leaf": worst,
+                "grad_rel_err_median": sorted(rel.values())[len(rel) // 2],
+                "feats_max_abs_diff": float(
+                    (card[3]["feats"] - cpu[3]["feats"]).abs().max()),
+                "global_max_argmax_flips": int(
+                    (card[3]["argmax"] != cpu[3]["argmax"]).sum())}
+
+    card = run(model, DEVICE)
+    rec = compare(card, run(cpu_model, "cpu", replay=card[2]))
+    own = run(cpu_model, "cpu")
+    rec["cpu_own_graphs"] = {
+        **compare(card, own),
+        "graph_rows_differing": [
+            int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for a, b in zip(card[2], own[2])]}
+    if (rec["loss_rel_err"] > TRAIN_LOSS_RTOL
+            or rec["grad_rel_err_max"] > TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train: the card's step against the CPU's {rec}")
+    return rec
+
+
+def phase_train(models, card):
+    """The trainer's loop (`train.train_loader`, which `train.train` runs over
+    h5 sets; this phase needs no h5py) under the production config, the
+    inst model preloaded, over the mixed synthetic training sets for
+    TRAIN_STEPS steps and one eval, checkpoints into build/train_smoke/.
+    Held to: every step's loss finite; the launches of the loop (K1 and K6
+    three a forward, K6b three a backward); one step's launches; K6b within
+    its rounding bound of its plain version at the three layer shapes on
+    the batch's real graphs; the card's step against the CPU's for one
+    cloud; the checkpoint re-read giving the same forward. Timed: the loop,
+    and train steps on one batch (median after warm-up)."""
+    import logging
+    import shutil
+
+    import torch
+    from sednet_tpu_torch import train as T
+    from sednet_tpu_torch.data import BatchLoader, PrefetchLoader
+    from sednet_tpu_torch.ops.flash_topk import flash_topk
+    from sednet_tpu_torch.ops.graph import locality_order
+    from sednet_tpu_torch.weights import load_checkpoint, save_params_npz
+
+    root = os.path.join(ROOT, "build", "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "run"))
+    preload = os.path.join(root, "preload_inst.npz")
+    save_params_npz(preload, models["inst"])
+    cfg = train_cfg(preload)
+    t0 = time.time()
+    mixed, test_ds = train_sets()
+    data_s = time.time() - t0
+    model, optimizer, gen = T.init_training(cfg, DEVICE)
+    loader = PrefetchLoader(BatchLoader(mixed, cfg.batch_size, shuffle=True,
+                                        seed=cfg.seed))
+    test_loader = BatchLoader(test_ds, cfg.batch_size, shuffle=False)
+
+    losses = []
+
+    class StepLosses(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("epoch"):
+                losses.append(record.args[2]["loss"])
+
+    log = logging.getLogger("sednet_tpu_torch.train")
+    handler = StepLosses()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.time()
+    try:
+        state, history = T.train_loader(
+            cfg, model, loader, test_loader, optimizer=optimizer,
+            run_dir=os.path.join(root, "run"), max_steps=TRAIN_STEPS,
+            log_every=1, generator=gen)
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    loop_s = time.time() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # what the loop itself added, above what earlier phases hold
+    peak_above_start_gib = peak_gib - start_bytes / 2 ** 30
+    n_eval = len(test_loader)
+    want = {key: n * (TRAIN_STEPS + (n_eval if key != "K6b" else 0))
+            for key, n in TRAIN_PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
+            or len(history) != 1):
+        raise AssertionError(f"train: step losses {losses}, history "
+                             f"{history}")
+
+    t0 = time.time()
+    batch = T.to_device(next(iter(BatchLoader(mixed, cfg.batch_size,
+                                              shuffle=False))), DEVICE)
+    batch_s = time.time() - t0
+    x = T.model_input(batch, cfg.normals).contiguous()
+    # the last checkpoint, written at the eval after the last step, re-read
+    ckpt = os.path.join(root, "run", "ckpts", "latest.npz")
+    reread = load_checkpoint(ckpt, cfg, DEVICE)
+    with torch.no_grad():
+        a, b = model(x), reread(x)
+    ckpt_diff = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+                    for f in ("embedding", "type_log_prob", "edge_logits"))
+    if ckpt_diff > TRAIN_CKPT_TOL:
+        raise AssertionError(f"train: re-read checkpoint's forward {ckpt_diff}"
+                             " from the trained model's")
+
+    t0 = time.time()
+    save_params_npz(os.path.join(root, "timed.npz"), model)
+    save_s = time.time() - t0
+
+    step = T.make_train_step(model, optimizer, cfg)
+    reset_counts()
+    step(batch, generator=gen)
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    if per_step != TRAIN_PER_STEP:
+        raise AssertionError(f"train: one step's launches {per_step}")
+    step_ms = time_ms(lambda: step(batch, generator=gen), reps=5, warmup=1)
+    # where a step's time goes: the forward and losses, the backward, the
+    # optimizer's update (differences of medians), and one step profiled
+    loss_fn = T.make_loss_fn(model, cfg)
+    split = {"forward_loss_ms": time_ms(lambda: loss_fn(batch, generator=gen),
+                                        reps=5, warmup=1),
+             "forward_loss_backward_ms": time_ms(
+                 lambda: loss_fn(batch, generator=gen)[0].backward(),
+                 reps=5, warmup=1)}
+    split["backward_ms"] = (split["forward_loss_backward_ms"]
+                            - split["forward_loss_ms"])
+    split["optimizer_ms"] = step_ms - split["forward_loss_backward_ms"]
+    prof = _device_profile(lambda: step(batch, generator=gen),
+                           "train_step_trace.json")
+    prof.pop("stages")
+
+    order = locality_order(x[..., :3].contiguous())
+    cot_gen = torch.Generator().manual_seed(TRAIN_SEED)
+    k6b = [check_gather_reduce_backward(
+        name, a, flash_topk(g, g, K, metric=metric), order, cot_gen)
+        for name, g, a, metric in _fused_layer_inputs(model, x)]
+    versus_cpu = card_vs_cpu_step(model, cfg, batch)
+
+    rec = {"phase": "train", "ok": True, "card": card,
+           "config": "configs/config_SEDNet_normal.yml",
+           "batch": [cfg.batch_size, cfg.num_points], "k": cfg.knn,
+           "steps": TRAIN_STEPS, "step_losses": losses,
+           "history": history, "launches": counts,
+           "launches_per_step": per_step,
+           "step_ms": step_ms, "shapes_per_s": cfg.batch_size * 1e3 / step_ms,
+           "step_split": split, "step_profile": prof,
+           "loop_s": loop_s, "loop_step_s_with_eval": loop_s / TRAIN_STEPS,
+           "data_setup_s": data_s, "batch_on_host_s": batch_s,
+           "save_npz_s": save_s, "peak_gib": peak_gib,
+           "peak_above_start_gib": peak_above_start_gib,
+           "k6b": k6b, "card_vs_cpu": versus_cpu,
+           "checkpoint": os.path.relpath(ckpt, ROOT),
+           "checkpoint_forward_max_diff": ckpt_diff}
+    emit(rec)
+    del model, optimizer, reread, state
+    torch.cuda.empty_cache()
+    return counts, k6b
+
+
 KERNELS = {
     "K1": ("flash_topk", "sednet_tpu_torch/csrc/flash_topk.cu",
            "sednet_tpu/ops/flash_topk.py:259"),
@@ -1651,6 +2028,10 @@ KERNELS = {
            "sednet_tpu/ops/pallas_kernels.py:329"),
     "K6": ("gather_reduce", "sednet_tpu_torch/csrc/gather_reduce.cu",
            "scripts/probe_gather_pallas.py:82"),
+    # no Pallas kernel: the gradient of XLA's gather that JAX differentiates
+    "K6b": ("gather_reduce_backward",
+            "sednet_tpu_torch/csrc/gather_reduce_bwd.cu",
+            "sednet_tpu/ops/graph.py:118"),
 }
 
 
@@ -1698,6 +2079,8 @@ def main():
                                                      big_x, big_inputs)
     timings["K2b"].append(k2b_big)
     phase_predict_bigcloud(models, big_shapes, big_inputs)
+    train_counts, k6b = phase_train(models, card)
+    timings["K6b"] = k6b
     # each kernel's launches from the path of this smoke that runs it: K1,
     # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds, K2 from
     # the headline, K4 from the eval's fused form, K5 from the "pallas"
@@ -1705,13 +2088,14 @@ def main():
     counts.update({k: cli_counts[k] for k in ("K1", "K2b", "K3", "K6")})
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]
+    counts["K6b"] = train_counts["K6b"]
 
     summary = []
     for key, (name, source, replaces) in KERNELS.items():
         cases = timings[key]
-        # K1, K4 and K6: the layer-2 case; K2b: the enriched E=140 case;
-        # K5: m = 36, the block of LOBPCG's Rayleigh-Ritz matvec
-        main_case = (cases[1] if key in ("K1", "K2b", "K4", "K5", "K6")
+        # K1, K4, K6 and K6b: the layer-2 case; K2b: the enriched E=140
+        # case; K5: m = 36, the block of LOBPCG's Rayleigh-Ritz matvec
+        main_case = (cases[1] if key in ("K1", "K2b", "K4", "K5", "K6", "K6b")
                      else cases[0])
         summary.append({
             "name": name, "route": "cuda", "source": source,

@@ -7,8 +7,8 @@ packages. The model reads the model group (`SEDNet.from_config`);
 `predict.segment_batch` and `predict.predict_shapes` read the `ms_*` group
 (`predict.cluster_settings`) and the inputs, HPNet and `fused_encoder`
 groups; `predict.run_prediction` reads the bookkeeping group (`dataset`,
-the two checkpoint paths, `num_test`, `seed`). The training fields are
-kept for the configs' sake; the port does not train yet.
+the two checkpoint paths, `num_test`, `seed`); `train.train` reads the
+optimisation, loss, preload and `mesh_shape` fields.
 """
 from __future__ import annotations
 

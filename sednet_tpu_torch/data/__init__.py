@@ -1,6 +1,7 @@
 from sednet_tpu_torch.data.augment import Augmentor
 from sednet_tpu_torch.data.datasets import (BatchLoader, EdgeDataset,
-                                            ParseNetDataset)
+                                            MixedDataset, ParseNetDataset,
+                                            PrefetchLoader)
 from sednet_tpu_torch.data.geometry import (normalize_points, pca_align,
                                             rotation_matrix_a_to_b)
 from sednet_tpu_torch.data.labels import (canonicalize_instance_labels,
@@ -12,8 +13,8 @@ from sednet_tpu_torch.data.synthetic import (EVAL_STREAM_SEED,
                                              write_edge_h5, write_parsenet_h5)
 
 __all__ = ["Augmentor", "BatchLoader", "EVAL_STREAM_SEED", "EdgeDataset",
-           "ParseNetDataset", "canonicalize_instance_labels",
-           "make_synthetic_shape", "normalize_points", "pca_align",
-           "project_types_fitting", "remap_type_labels_eval",
-           "remap_type_labels_train", "rotation_matrix_a_to_b",
-           "write_edge_h5", "write_parsenet_h5"]
+           "MixedDataset", "ParseNetDataset", "PrefetchLoader",
+           "canonicalize_instance_labels", "make_synthetic_shape",
+           "normalize_points", "pca_align", "project_types_fitting",
+           "remap_type_labels_eval", "remap_type_labels_train",
+           "rotation_matrix_a_to_b", "write_edge_h5", "write_parsenet_h5"]

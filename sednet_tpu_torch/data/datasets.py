@@ -1,7 +1,8 @@
-"""Dataset loaders for the two h5 schemas and a batch loader.
+"""Dataset loaders for the two h5 schemas and the batch loaders.
 
 A copy of `sednet_tpu/data/datasets.py` (`_H5Dataset`, `ParseNetDataset`,
-`EdgeDataset`, `BatchLoader`) without its C++ preprocessing branch: items
+`EdgeDataset`, `MixedDataset`, `BatchLoader`, `PrefetchLoader`) without
+its C++ preprocessing branch: items
 take the numpy route the JAX package takes with `use_native=False`.
 
 Reference schemas:
@@ -168,6 +169,21 @@ class EdgeDataset(_H5Dataset):
                          train=train, **kw)
 
 
+class MixedDataset:
+    """Index concatenation (reference: src/dataset_mix.py:9-24)."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    def __len__(self):
+        return len(self.first) + len(self.second)
+
+    def __getitem__(self, index: int) -> dict:
+        if index < len(self.first):
+            return self.first[index]
+        return self.second[index - len(self.first)]
+
+
 class BatchLoader:
     """Batch iterator producing stacked numpy dicts, shuffled or in order
     (reference: the DataLoader of train_sed_net.py:185-187)."""
@@ -197,3 +213,63 @@ class BatchLoader:
                 return
             items = [self.dataset[int(i)] for i in idx]
             yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class PrefetchLoader:
+    """Background-thread prefetch around any batch iterable, the host-side
+    counterpart of the reference's DataLoader(num_workers=8,
+    persistent_workers=True) (reference: train_sed_net.py:185-187): batch
+    assembly (h5 reads, augmentation, PCA alignment) overlaps the step.
+    Order-preserving; `depth` batches at most wait in the queue."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        import queue
+        import threading
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        end = object()
+        err: list = []
+        stop = threading.Event()
+
+        def put(item):
+            # a bounded put that re-checks stop: a consumer that abandons
+            # the iteration (train hitting max_steps) must not leave this
+            # thread blocked on a full queue, holding `depth` batches
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+            except BaseException as e:  # raised again in the consumer
+                err.append(e)
+            finally:
+                put(end)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                yield item
+            t.join()
+            if err:
+                raise err[0]
+        finally:
+            stop.set()

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sednet_tpu_torch"
 SOURCES = ("colmax.cu", "errors.cu", "flash_topk.cu", "fused_edgeconv.cu",
-           "gather_reduce.cu", "mean_shift.cu", "segsum.cu")
+           "gather_reduce.cu", "gather_reduce_bwd.cu", "mean_shift.cu",
+           "segsum.cu")
 # -fmad=false keeps every product and sum that the sources write apart
 # as written (the dot products use explicit fmaf), so the arithmetic
 # follows the plain PyTorch versions step for step.
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "sednet_fused_edge_reductions": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _P, _P, _P, _P, _P, _P, _P, _P),
     "sednet_gather_reduce": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "sednet_gather_reduce_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _P, _P),
     "sednet_segsum_sorted": (_P, _P, _I, _L, _I, _P, _P, _P, _P),
     "sednet_segsum_chunks": (_L,),
 }

@@ -4,10 +4,13 @@ Counterpart of `sednet_tpu/ops/graph.py:17-39,74-141`. The gather and its
 three reductions over the neighbours are kernel K6 (`gather_reduce`,
 `csrc/gather_reduce.cu`, the counterpart of the TPU probe kernel
 `scripts/probe_gather_pallas.py:_call`): a CUDA tensor launches it, a CPU
-tensor takes `gather_reduce_plain`. Forward only: the kernel has no
-backward yet, and a backward through it raises. The kernel walks the rows
-in a given order, a Morton curve of the points (`locality_order`), so that
-the rows a block handles share their neighbours and read them from L1.
+tensor takes `gather_reduce_plain`. Its gradient is kernel K6b
+(`gather_reduce_backward`, `csrc/gather_reduce_bwd.cu`): on the card a
+backward through K6 launches it, on the CPU autograd differentiates the
+plain version. The JAX package has no kernel for that gradient: it
+differentiates XLA's gather. Both kernels walk the rows in a given order, a
+Morton curve of the points (`locality_order`), so that the rows a block
+handles share their neighbours.
 """
 from __future__ import annotations
 
@@ -95,20 +98,30 @@ def gather_reduce_plain(a, idx):
     return g.sum(2), (g * g).sum(2), g.amax(2)
 
 
-def _gather_reduce_launch(a, idx, order):
-    _build.require_cuda_f32("gather_reduce a", a)
+def _check_graph(what, a, idx):
     if a.dim() != 3 or idx.dim() != 3 or idx.shape[:2] != a.shape[:2]:
-        raise ValueError("gather_reduce: a (B, N, C) and idx (B, N, K)")
+        raise ValueError(f"{what}: a (B, N, C) and idx (B, N, K)")
     if idx.device != a.device or idx.dtype != torch.int64:
-        raise ValueError("gather_reduce: idx must be int64 on a's device")
+        raise ValueError(f"{what}: idx must be int64 on a's device")
+    if not 1 <= idx.shape[2] <= 128:
+        raise ValueError(f"{what}: K={idx.shape[2]} outside [1, 128]")
+
+
+def _kernel_table(what, t):
+    """t (B, N, C) float32 on the card, padded to the kernels' width and
+    checked for the 32-bit row offsets and 16-byte alignment they take."""
+    _build.require_cuda_f32(what, t)
+    tp = _build.pad_width(t)
+    _build.require_row_offsets(what, tp)
+    if tp.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned")
+    return tp
+
+
+def _gather_reduce_launch(a, idx, order):
+    _check_graph("gather_reduce", a, idx)
     b, n, c = a.shape
-    k = idx.shape[2]
-    if not 1 <= k <= 128:
-        raise ValueError(f"gather_reduce: K={k} outside [1, 128]")
-    ap = _build.pad_width(a)
-    _build.require_row_offsets("gather_reduce", ap)
-    if ap.data_ptr() % 16:
-        raise ValueError("gather_reduce: a must be 16-byte aligned")
+    ap = _kernel_table("gather_reduce a", a)
     cp = ap.shape[-1]
     idx = idx.contiguous()
     order = None if order is None else order.contiguous()
@@ -116,8 +129,8 @@ def _gather_reduce_launch(a, idx, order):
                  for _ in range(3))
     err = _build.lib().sednet_gather_reduce(
         ap.data_ptr(), idx.data_ptr(),
-        0 if order is None else order.data_ptr(), b, n, cp, k, s.data_ptr(),
-        sq.data_ptr(), mx.data_ptr(), _build.stream_of(a))
+        0 if order is None else order.data_ptr(), b, n, cp, idx.shape[2],
+        s.data_ptr(), sq.data_ptr(), mx.data_ptr(), _build.stream_of(a))
     _build.check(err, "gather_reduce")
     gather_reduce.launches += 1
     if cp != c:
@@ -126,19 +139,21 @@ def _gather_reduce_launch(a, idx, order):
 
 
 class _GatherReduce(torch.autograd.Function):
-    """K6's launch as an autograd node whose backward raises, so that a
-    gradient through the kernel fails loudly instead of losing the gather's
-    term (the backward scatter-add kernel is ROADMAP.md queue 1, training)."""
+    """K6's launch as an autograd node whose backward is kernel K6b. It
+    keeps the table, the graph, the order and the forward's max, which K6b
+    compares each gathered value with to find the max's ties."""
 
     @staticmethod
     def forward(ctx, a, idx, order):
-        return _gather_reduce_launch(a, idx, order)
+        s, sq, mx = _gather_reduce_launch(a, idx, order)
+        ctx.save_for_backward(a, idx, order, mx)
+        return s, sq, mx
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "gather_reduce (K6) has no backward kernel yet: run the CUDA "
-            "forward under torch.no_grad(), or differentiate on the CPU")
+    def backward(ctx, gs, gsq, gmx):
+        a, idx, order, mx = ctx.saved_tensors
+        return _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq,
+                                              gmx), None, None
 
 
 def gather_reduce(a, idx, order=None):
@@ -146,8 +161,9 @@ def gather_reduce(a, idx, order=None):
     neighbours, a (B, N, C) float32, idx (B, N, K) int64 (out-of-range
     entries clamp within their shape). Returns three (B, N, C). On CUDA, a
     must be contiguous, C <= 256 (padded to a multiple of 32) and K <= 128;
-    the sums run over k in ascending order. The CUDA path is forward only:
-    backpropagating through it raises NotImplementedError.
+    the sums run over k in ascending order. Where a requires grad on CUDA,
+    the backward launches K6b (`gather_reduce_backward`); on the CPU
+    autograd differentiates `gather_reduce_plain`.
 
     order: None (the rows in their own order) or a (B, N) int32 tensor on
     a's device that must hold a permutation of 0 .. N-1 in each shape
@@ -165,6 +181,98 @@ def gather_reduce(a, idx, order=None):
 
 
 gather_reduce.launches = 0
+
+
+def gather_reduce_backward_plain(a, idx, mx, gs, gsq, gmx):
+    """Plain PyTorch version of K6b, the gradient of `gather_reduce` with
+    respect to a: a (B, N, C) the table, idx (B, N, K), mx (B, N, C) the
+    forward's max, gs, gsq, gmx (B, N, C) the cotangents of the sum, the
+    sum of squares and the max. Each gathered position (i, k) with
+    j = clamp(idx[i, k], 0, N - 1) adds
+
+        gs[i] + 2 a[j] gsq[i] + [a[j] == mx[i]] gmx[i] / cnt[i]
+
+    into da[j], cnt[i] the number of positions of row i equal to its max
+    (the max's cotangent split over its ties, as JAX's reduce_max VJP and
+    torch's amax backward split it), through the (B, N, K, C) gather and
+    `index_add_`."""
+    b, n, c = a.shape
+    g = gather_neighbors(a, idx)
+    tie = g == mx[:, :, None, :]
+    cnt = tie.sum(2, dtype=a.dtype)
+    w = torch.where(cnt > 0, gmx / cnt.clamp_min(1.0), 0.0)
+    d = (gs[:, :, None, :] + 2.0 * g * gsq[:, :, None, :]
+         + torch.where(tie, w[:, :, None, :], 0.0))
+    flat = idx.clamp(0, n - 1) + n * torch.arange(
+        b, device=a.device, dtype=idx.dtype)[:, None, None]
+    da = torch.zeros((b * n, c), dtype=a.dtype, device=a.device)
+    da.index_add_(0, flat.reshape(-1), d.reshape(-1, c))
+    return da.reshape(b, n, c)
+
+
+def _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq, gmx):
+    _check_graph("gather_reduce_backward", a, idx)
+    if order is not None:
+        _check_order(order, a)
+    b, n, c = a.shape
+    ap, mxp, gsp, gsqp, gmxp = (
+        _kernel_table(f"gather_reduce_backward {name}", t.contiguous())
+        for name, t in (("a", a), ("mx", mx), ("gs", gs), ("gsq", gsq),
+                        ("gmx", gmx)))
+    if any(t.shape != ap.shape for t in (mxp, gsp, gsqp, gmxp)):
+        raise ValueError("gather_reduce_backward: a, mx, gs, gsq and gmx "
+                         "must all be (B, N, C)")
+    cp = ap.shape[-1]
+    idx = idx.contiguous()
+    order = None if order is None else order.contiguous()
+    da = torch.zeros((b, n, cp), dtype=torch.float32, device=a.device)
+    err = _build.lib().sednet_gather_reduce_backward(
+        ap.data_ptr(), idx.data_ptr(),
+        0 if order is None else order.data_ptr(), mxp.data_ptr(),
+        gsp.data_ptr(), gsqp.data_ptr(), gmxp.data_ptr(), b, n, cp,
+        idx.shape[2], da.data_ptr(), _build.stream_of(a))
+    _build.check(err, "gather_reduce_backward")
+    gather_reduce_backward.launches += 1
+    return da if cp == c else da[..., :c]
+
+
+def gather_reduce_backward(a, idx, mx, gs, gsq, gmx, order=None):
+    """K6b: the gradient of `gather_reduce(a, idx)` with respect to a, given
+    the forward's max mx and the cotangents gs, gsq, gmx (each (B, N, C));
+    see `gather_reduce_backward_plain` for the formula. A CUDA tensor
+    launches the kernel, whose atomic adds make the last bits vary from run
+    to run (`backward_error_bound` bounds its distance from the plain
+    version); a CPU tensor takes the plain version. order: as in
+    `gather_reduce`, the row order the kernel's blocks walk."""
+    if a.device.type == "cpu":
+        if order is not None:
+            _check_order(order, a)
+        return gather_reduce_backward_plain(a, idx, mx, gs, gsq, gmx)
+    return _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq, gmx)
+
+
+gather_reduce_backward.launches = 0
+
+
+def backward_error_bound(a, idx, mx, gs, gsq, gmx):
+    """Per element of da (B, N, C), the most that two float32 evaluations of
+    `gather_reduce_backward_plain`'s sums may differ by when they add the
+    same terms in any two orders: (2 m + 4) u S, with m the number of terms
+    the element sums (the row's in-degree), S the sum of their magnitudes
+    and u = 2^-24 (each order's error is at most m u S; the terms themselves
+    round a few units apart)."""
+    b, n, c = a.shape
+    g = gather_neighbors(a, idx)
+    tie = g == mx[:, :, None, :]
+    cnt = tie.sum(2, dtype=a.dtype).clamp_min(1.0)
+    d = (gs[:, :, None, :].abs() + 2.0 * g.abs() * gsq[:, :, None, :].abs()
+         + torch.where(tie, (gmx / cnt).abs()[:, :, None, :], 0.0))
+    flat = (idx.clamp(0, n - 1) + n * torch.arange(
+        b, device=a.device, dtype=idx.dtype)[:, None, None]).reshape(-1)
+    mag = torch.zeros((b * n, c), dtype=torch.float64, device=a.device)
+    mag.index_add_(0, flat, d.reshape(-1, c).double())
+    deg = torch.bincount(flat, minlength=b * n).double()[:, None]
+    return ((2.0 * deg + 4.0) * 2.0 ** -24 * mag).reshape(b, n, c)
 
 
 def edge_conv_factored(x, idx, weight, scale, bias, *, groups: int,

@@ -13,6 +13,8 @@ is by name:
 
 which also covers the encoder's edge convolutions
 (`encoder/convN/conv/kernel` -> `encoder.convN.conv.weight`, no bias).
+`flat_from_params` and `save_params_npz` are the way back: the trainer's
+checkpoints are flat `.npz` files that JAX's `load_params` reads.
 """
 from __future__ import annotations
 
@@ -48,6 +50,32 @@ def params_from_flat(flat, prefix: str = "inst") -> dict:
     return sd
 
 
+def flat_from_params(state_dict) -> dict:
+    """The inverse of `params_from_flat(flat, "")`: a torch state dict to
+    the flat "a/b/c" arrays of one model (`a.b.weight` of a Linear
+    transposed back to `a/b/kernel`, a GroupNorm's 1-D `weight` back to
+    `a/b/scale`)."""
+    flat = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            leaf = "kernel" if arr.ndim == 2 else "scale"
+            if arr.ndim == 2:
+                arr = arr.T
+        elif leaf != "bias":
+            raise KeyError(f"unmapped state-dict key {key!r}")
+        flat["/".join(path + [leaf])] = np.ascontiguousarray(arr)
+    return flat
+
+
+def save_params_npz(path: str, model) -> None:
+    """Write a model's parameters as one flat `.npz` in the format of
+    `sednet_tpu/train.py:248 save_params_npz` (no prefix), which JAX's
+    `load_params` and the port's `load_checkpoint` read."""
+    np.savez_compressed(path, **flat_from_params(model.state_dict()))
+
+
 def load_npz(path: str, which: str = "inst", cfg: Config | None = None,
              device=None) -> SEDNet:
     """Build a SEDNet from `cfg` and load model `which` of the flat npz at
@@ -61,13 +89,12 @@ def load_npz(path: str, which: str = "inst", cfg: Config | None = None,
     return model.to(dev).eval()
 
 
-def load_checkpoint(path: str, cfg: Config | None = None,
-                    device=None) -> SEDNet:
-    """One model from the checkpoint at `path`, as `sednet_tpu/train.py:265
-    load_params` followed by `run_prediction`'s unwrap of "params" reads
-    it: a flat `.npz` of one model's parameters, with or without the
-    "params/" prefix. Orbax directories and the reference's `.pth` files
-    are not read yet (ROADMAP queue 1 item 10)."""
+def load_params(path: str) -> dict:
+    """One model's parameters from a flat `.npz`, with or without the
+    "params/" prefix, as a torch state dict: what `sednet_tpu/train.py:265
+    load_params` reads from such a file, less `run_prediction`'s unwrap of
+    "params". Orbax directories and the reference's `.pth` files are not
+    read yet (ROADMAP queue 1 item 10)."""
     if not path.endswith(".npz"):
         kind = ("reference .pth" if path.endswith((".pth", ".pt"))
                 else "orbax directory")
@@ -77,4 +104,14 @@ def load_checkpoint(path: str, cfg: Config | None = None,
     with np.load(path) as flat:
         prefix = "params" if any(k.startswith("params/")
                                  for k in flat.files) else ""
-    return load_npz(path, prefix, cfg, device)
+        return params_from_flat(flat, prefix)
+
+
+def load_checkpoint(path: str, cfg: Config | None = None,
+                    device=None) -> SEDNet:
+    """A SEDNet from `cfg` with the parameters of the one-model checkpoint
+    at `path` (`load_params`; strict: every key and shape must match)."""
+    dev = resolve_device(device)
+    model = SEDNet.from_config(cfg or Config())
+    model.load_state_dict(load_params(path), strict=True)
+    return model.to(dev).eval()

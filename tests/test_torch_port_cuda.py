@@ -14,8 +14,10 @@ from sednet_tpu_torch.ops import fused_edgeconv as fe
 from sednet_tpu_torch.cluster import cluster_batch, guard_mean_shift
 from sednet_tpu_torch.cluster.spectral import hpnet_enrich
 from sednet_tpu_torch.data import make_synthetic_shape
-from sednet_tpu_torch.ops.graph import (gather_reduce, gather_reduce_plain,
-                                        locality_order)
+from sednet_tpu_torch.ops.graph import (backward_error_bound, gather_reduce,
+                                        gather_reduce_backward,
+                                        gather_reduce_backward_plain,
+                                        gather_reduce_plain, locality_order)
 from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
                                              topk_plain)
 
@@ -567,23 +569,115 @@ def test_gather_reduce_kernel_rejects_a_bad_order(cuda):
     assert gather_reduce.launches == before
 
 
-# K6 is forward only. With a table that requires grad, the forward still
-# launches the kernel and gives the same values, but a backward through it
-# raises instead of silently dropping the gather's term from the gradient.
+def _bwd_inputs(cuda, seed, b, n, c, k, ties):
+    """A table (dense ties: values in {-2 .. 2}), a graph with repeated
+    neighbours and out-of-range entries, K6's max on it, and three
+    cotangents, on the card."""
+    rng = np.random.RandomState(seed)
+    a = (rng.randint(-2, 3, (b, n, c)) if ties
+         else rng.randn(b, n, c)).astype(np.float32)
+    idx = rng.randint(0, n, (b, n, k))
+    if k > 1:
+        idx[:, ::3, 1] = idx[:, ::3, 0]
+    idx[0, :9, 0] = -5
+    idx[-1, 4, :min(k, 3)] = n + 17
+    a = torch.from_numpy(a).to(cuda)
+    idx = torch.from_numpy(idx).to(cuda)
+    cot = [torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(cuda)
+           for _ in range(3)]
+    return a, idx, gather_reduce_plain(a, idx)[2], cot
+
+
+def _bwd_holds(a, idx, mx, cot, order=None):
+    """Launch K6b once and hold it to its plain version within
+    backward_error_bound (the atomics add in no fixed order)."""
+    before = gather_reduce_backward.launches
+    da = gather_reduce_backward(a, idx, mx, *cot, order=order)
+    torch.cuda.synchronize()
+    assert gather_reduce_backward.launches == before + 1
+    want = gather_reduce_backward_plain(a, idx, mx, *cot)
+    bound = backward_error_bound(a, idx, mx, *cot)
+    err = (da.double() - want.double()).abs()
+    assert da.shape == a.shape and bool((err <= bound).all()), (
+        float(err.max()), float(bound.max()))
+    return da
+
+
+# K6b against its plain version: widths 32-256, padded ones among them (50,
+# 100, 200 run at 64, 128, 224), K from 1 to 128, B = 1 and 4, N = 2003 not
+# a multiple of a block's run, dense ties of the max, repeated and
+# out-of-range neighbours, along the Morton order of the points and the
+# identity.
 @pytest.mark.cuda
-def test_gather_reduce_kernel_backward_raises(cuda):
-    rng = np.random.RandomState(10)
-    a = torch.from_numpy(rng.randn(2, 300, 64).astype(np.float32)).to(cuda)
-    idx = torch.from_numpy(rng.randint(0, 300, (2, 300, 16))).to(cuda)
+@pytest.mark.parametrize("b,c,k,ties", [
+    (1, 32, 1, True), (4, 64, 64, False), (4, 64, 64, True),
+    (1, 50, 16, True), (4, 96, 33, False), (1, 100, 128, True),
+    (4, 128, 64, True), (1, 160, 64, False), (4, 200, 16, True),
+    (1, 256, 128, False), (4, 256, 8, True)])
+@pytest.mark.parametrize("ordered", [False, True])
+def test_gather_reduce_backward_kernel_matches_plain(cuda, b, c, k, ties,
+                                                     ordered):
+    n = 2003
+    a, idx, mx, cot = _bwd_inputs(cuda, c + k + b, b, n, c, k, ties)
+    order = None
+    if ordered:
+        xyz = torch.rand((b, n, 3), generator=torch.Generator().manual_seed(
+            c), dtype=torch.float32).to(cuda)
+        order = locality_order(xyz)
+    _bwd_holds(a, idx, mx, cot, order)
+
+
+# A backward through K6 on a table that requires grad launches K6b once (no
+# plain version in between), and its gradient is the plain version's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_gather_reduce_kernel_backward_launches_k6b(cuda, ties):
+    a, idx, mx, cot = _bwd_inputs(cuda, 10, 2, 300, 64, 16, ties)
     want = gather_reduce(a, idx)
     a.requires_grad_(True)
-    before = gather_reduce.launches
-    got = gather_reduce(a, idx)
-    assert gather_reduce.launches == before + 1
+    order = locality_order(torch.rand((2, 300, 3), device=cuda))
+    before = (gather_reduce.launches, gather_reduce_backward.launches)
+    got = gather_reduce(a, idx, order)
     for g, w in zip(got, want):
         assert g.requires_grad and torch.equal(g.detach(), w)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        sum(g.sum() for g in got).backward()
+    torch.autograd.backward(got, cot)
+    torch.cuda.synchronize()
+    assert (gather_reduce.launches, gather_reduce_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = gather_reduce_backward_plain(a.detach(), idx, mx, *cot)
+    bound = backward_error_bound(a.detach(), idx, mx, *cot)
+    assert bool(((a.grad.double() - plain.double()).abs() <= bound).all())
+
+
+# The edge convolution's gradients (input, conv weight, GroupNorm scale and
+# bias) on the card, through K6 and K6b, against the same on the CPU
+# through the plain versions: the same function, its sums in other orders.
+@pytest.mark.cuda
+def test_edge_conv_factored_gradients_on_card_match_cpu(cuda):
+    from sednet_tpu_torch.ops.graph import edge_conv_factored
+
+    rng = np.random.RandomState(14)
+    b, n, k, c_in, c_out = 2, 500, 16, 64, 128
+    cpu = {"x": rng.randn(b, n, c_in), "w": rng.randn(c_out, 2 * c_in) / 11,
+           "scale": rng.uniform(-1.5, 1.5, c_out),
+           "bias": rng.randn(c_out)}
+    cpu = {key: torch.from_numpy(v.astype(np.float32)).requires_grad_()
+           for key, v in cpu.items()}
+    idx = torch.from_numpy(rng.randint(0, n, (b, n, k)))
+    card = {key: v.detach().to(cuda).requires_grad_()
+            for key, v in cpu.items()}
+    cot = torch.from_numpy(rng.randn(b, n, c_out).astype(np.float32))
+    before = gather_reduce_backward.launches
+    for t, g, ix in ((cpu, cot, idx), (card, cot.to(cuda), idx.to(cuda))):
+        y = edge_conv_factored(t["x"], ix, t["w"], t["scale"], t["bias"],
+                               groups=2)
+        y.backward(g)
+    torch.cuda.synchronize()
+    assert gather_reduce_backward.launches == before + 1
+    for key in cpu:
+        want, got = cpu[key].grad, card[key].grad.cpu()
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-4, (key, rel)
 
 
 # K4's phase 2 is K6's loop along the same order: the output with the
@@ -819,3 +913,68 @@ def test_predict_shapes_stream_matches_per_batch_on_card(cuda):
                          "type_iou", "inst_recall"):
                 np.testing.assert_array_equal(g[name], w[name], err_msg=name)
             np.testing.assert_array_equal(g["edge_prob"], w["edge_prob"])
+
+
+# One train step of the production model (k = 64, embed 128) on two
+# 1000-point clouds: on the card it launches K1 and K6 three times each and
+# K6b three times (the edge convolutions' gradients); its loss and every
+# parameter's gradient agree with the same step on the CPU (the plain
+# versions) on the same parameters, triplet draws and kNN graphs (the
+# card's, replayed: K1's TF32 split may swap near-tie neighbours against
+# the plain top-k, which moves a row's max and the gradients with it), up
+# to the float association of the card's sums.
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    import copy
+
+    from sednet_tpu_torch import train as T
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.losses import TripletConfig
+    from sednet_tpu_torch.losses.embedding import sample_draws
+    from sednet_tpu_torch.models import backbone
+    from sednet_tpu_torch.models.init import init_like_flax
+    from sednet_tpu_torch.ops.flash_topk import flash_topk
+
+    graphs, replay = [], []
+
+    def record_or_replay(fn):
+        def call(x, *args, **kw):
+            if replay:
+                return replay.pop(0).to(x.device)
+            graphs.append(fn(x, *args, **kw))
+            return graphs[-1]
+        return call
+
+    for name in ("knn_indices", "knn_indices_points_normals"):
+        monkeypatch.setattr(backbone, name,
+                            record_or_replay(getattr(backbone, name)))
+    cfg = Config(num_points=1000, edge_topk=400)
+    rng = np.random.RandomState(21)
+    shapes = [make_synthetic_shape(rng, n_points=1000) for _ in range(2)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in shapes]))
+             for k in ("points", "normals", "labels", "prim", "edges",
+                       "edges_w")}
+    model = init_like_flax(T.build_model(cfg),
+                           torch.Generator().manual_seed(0))
+    draws = sample_draws(batch["labels"], TripletConfig(
+        max_segments=cfg.ms_max_clusters), torch.Generator().manual_seed(1))
+    out = {}
+    for name, dev, m in (("cuda", cuda, copy.deepcopy(model).to(cuda)),
+                         ("cpu", "cpu", model)):
+        replay[:] = graphs   # none for the card, the card's for the CPU
+        before = [f.launches for f in (flash_topk, gather_reduce,
+                                       gather_reduce_backward)]
+        total, _ = T.make_loss_fn(m, cfg)(
+            {k: v.to(dev) for k, v in batch.items()}, draws)
+        total.backward()
+        after = [f.launches for f in (flash_topk, gather_reduce,
+                                      gather_reduce_backward)]
+        out[name] = (float(total.detach()), [a - b for a, b in
+                                             zip(after, before)],
+                     {k: p.grad.cpu() for k, p in m.named_parameters()})
+    assert out["cpu"][1] == [0, 0, 0] and out["cuda"][1] == [3, 3, 3]
+    assert not replay and len(graphs) == 3
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for key, want in out["cpu"][2].items():
+        rel = float((out["cuda"][2][key] - want).norm() / want.norm())
+        assert rel <= 1e-3, (key, rel)

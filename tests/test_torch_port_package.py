@@ -24,7 +24,11 @@ MODULES = ["sednet_tpu_torch"] + sorted(
 def test_import_loads_no_jax():
     for name in ("sednet_tpu_torch.cluster.spectral",
                  "sednet_tpu_torch.ops.cuda_kernels",
-                 "sednet_tpu_torch.ops.graph", "sednet_tpu_torch.predict"):
+                 "sednet_tpu_torch.ops.graph", "sednet_tpu_torch.predict",
+                 "sednet_tpu_torch.train", "sednet_tpu_torch.models.init",
+                 "sednet_tpu_torch.losses.edge",
+                 "sednet_tpu_torch.losses.embedding",
+                 "sednet_tpu_torch.losses.type_loss"):
         assert name in MODULES
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
