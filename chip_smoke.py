@@ -49,6 +49,23 @@ is not 0):
              per batch and per shape; shapes/s with dumps and postproc off
              and with dumps on, the streamed and sequential walls, postproc
              s a shape, peak memory;
+  fit_pipeline  `bench.py`'s record 3 on the port: `segment_batch` on the
+             same 8 clouds, `Evaluation.residual_eval_batch` (eval mode, no
+             refit) and `p_coverage`: (a) with the true labels and types,
+             every segment's type, residual and fitted parameters against
+             the JAX package's (`scripts/jax_fit_reference.py`), (b) on the
+             port's own labels, residual and p_cover within JAX's spread
+             across keys; shapes/s, each stage's host and device ms under
+             torch.profiler, peak memory, launches, the batched fit and its
+             SVD alone;
+  fit_splines  open and closed B-spline patch clouds through
+             `fit_one_shape(eval_mode=True)` and SplineNet at full width
+             (seeded `init_like_flax` weights) on the card and on the CPU:
+             K1 four times a segment, each graph's neighbour sets against
+             `topk_plain` and against the CPU's, control grids, surfaces
+             and residuals held where the sets agree; one SplineNet
+             forward at 1500 and 1800 points, one refit, and K1 at
+             B = 1, k = 10, D = 3 / 64 / 128 against `topk_plain`;
   kernels_slice3  K6 (the gather-reduce of the index-route edge conv) at
              the encoder's three layer shapes on the real tables and graphs,
              along the Morton order of the points and along the identity
@@ -389,12 +406,14 @@ def k1_eval_cases(x, emb_e, sels):
              {"largest": True})]
 
 
-def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False):
+def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False,
+               max_swapped=MAX_SWAPPED):
     """K1 against topk_plain, by `compare_with_plain`: distances, returned
     and to the returned neighbours, within 1e-5 of the rounding scale
     1 + max |q|^2; neighbour sets equal except where the plain k-th and
     (k+1)-th distances lie within 1e-6 of it, and then in at most
-    MAX_SWAPPED of the rows. largest=True: the k farthest. At D > 8 (the
+    max_swapped of the rows (None: any share of the near-tie rows).
+    largest=True: the k farthest. At D > 8 (the
     tensor-core tile) the bound is the split's and the returned distances
     must err, against float64 distances to the same neighbours, at most
     twice as much as the plain version's."""
@@ -407,7 +426,8 @@ def check_topk(name, q, p, k, metric="sqdist", library=True, largest=False):
     torch.cuda.synchronize()
     cmp = compare_with_plain(q, p, k, idx, dist, **kw)
     if (cmp["bad_rows"] or max(cmp["max_abs_err"], cmp["nbr_err"]) > cmp["tol"]
-            or cmp["swapped_rows"] > MAX_SWAPPED * cmp["rows"]):
+            or (max_swapped is not None
+                and cmp["swapped_rows"] > max_swapped * cmp["rows"])):
         raise AssertionError(f"{name}: {cmp}")
     b = q.shape[0] if q.dim() == 3 else 1
     m, d = q.shape[-2:]
@@ -923,22 +943,24 @@ def _forward_peaks(fwd, x):
     return out
 
 
-def _stage_times(trace_path):
-    """Each stage range of predict_shapes (`predict.STAGES`) from a chrome
-    trace of one call: its host ms, and the device ms of the kernels,
-    copies and fills whose launch (the runtime call with the same
-    correlation id) lies inside it. The kernels of `csrc/` come through
-    ctypes, outside any torch op, so the profiler's own per-op device
-    times miss them; the launch call does not."""
+def _stage_times(trace_path, stages=None):
+    """Each stage range (by default predict_shapes', `predict.STAGES`;
+    named "a/b", keyed "b") from a chrome trace of one call: its host ms,
+    and the device ms of the kernels, copies and fills whose launch (the
+    runtime call with the same correlation id) lies inside it. The kernels
+    of `csrc/` come through ctypes, outside any torch op, so the
+    profiler's own per-op device times miss them; the launch call does
+    not."""
     from sednet_tpu_torch.predict import STAGES
 
+    stages = stages or STAGES
     with open(trace_path) as f:
         events = [ev for ev in json.load(f)["traceEvents"]
                   if ev.get("ph") == "X"]
     spans, launch, dev = [], {}, []
     for ev in events:
         cat, corr = ev.get("cat"), ev.get("args", {}).get("correlation")
-        if cat == "user_annotation" and ev["name"] in STAGES:
+        if cat == "user_annotation" and ev["name"] in stages:
             spans.append((ev["ts"], ev["ts"] + ev["dur"],
                           ev["name"].split("/")[1]))
         elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
@@ -946,7 +968,7 @@ def _stage_times(trace_path):
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             dev.append((corr, ev["dur"]))
     out = {n.split("/")[1]: {"host_ms": 0.0, "device_ms": 0.0, "ranges": 0}
-           for n in STAGES}
+           for n in stages}
     for t0, t1, name in spans:
         out[name]["host_ms"] += (t1 - t0) / 1e3
         out[name]["ranges"] += 1
@@ -962,16 +984,19 @@ def _stage_times(trace_path):
     return out
 
 
-def _device_profile(run, trace_name="predict_trace.json"):
+def _device_profile(run, trace_name="predict_trace.json", stages=None):
     """One run under torch.profiler: the wall time, the summed device time
     of its kernels (the events on the device, not the host ops that
     launched them, which carry the same time again), their share of the
     wall time, the top kernels, and each stage's host and device time
-    (`_stage_times`; the trace is kept in build/<trace_name>)."""
+    (`_stage_times` of `stages`, by default predict_shapes'; the trace is
+    kept in build/<trace_name>)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from sednet_tpu_torch.predict import STAGES
+
+    stages = stages or STAGES
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -983,7 +1008,7 @@ def _device_profile(run, trace_name="predict_trace.json"):
     # the stage ranges also show on the device's timeline: not kernels
     rows = [(ev.key, float(ev.self_device_time_total), ev.count)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.key not in STAGES]
+            if ev.device_type == DeviceType.CUDA and ev.key not in stages]
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows) / 1e6
     rows.sort(key=lambda r: -r[1])
@@ -993,7 +1018,7 @@ def _device_profile(run, trace_name="predict_trace.json"):
     return {"wall_s": wall, "device_kernel_s": busy if rows else None,
             "device_busy_share": busy / wall if rows else None,
             "top": [[k[:60], us / 1e3, n] for k, us, n in rows[:10]],
-            "stages": _stage_times(trace)}
+            "stages": _stage_times(trace, stages)}
 
 
 def phase_predict(name, models, batch, inputs, *, fused=False,
@@ -1276,6 +1301,604 @@ def phase_predict_cli(models, shapes, pred_launches):
             f"predict_cli: differ {differ}, bars {got}, missing {missing}, "
             f"launches {counts} (expected {expected})")
     return counts
+
+
+# The JAX package's fit pipeline (`bench.py` record 3) on the same 8 clouds,
+# on the CPU: `Evaluation.residual_eval_batch` (eval mode, no refit) and
+# `p_coverage`, with the true labels and types (REF_FIT_GT) and after the
+# headline pipeline under keys 7, 8 and 9 (REF_FIT_KEYS):
+#   JAX_PLATFORMS=cpu python scripts/jax_fit_reference.py
+REF_FIT_GT = (
+    {'segments': [{'0': ['sphere', 0.0031622787937521935,
+                         [-0.02894206, 0.07717465, 0.17231283, 0.10169462]],
+                   '1': ['cone', 0.0031622787937521935,
+                         [-0.07142353, -0.13750322, 0.08699946, 0.3195388,
+                          -0.81091422, -0.49021724, 0.4767597]],
+                   '2': ['sphere', 0.0031622787937521935,
+                         [-0.07690947, -0.05910506, 0.02271463, 0.26930442]],
+                   '3': ['cylinder', 0.0031622787937521935,
+                         [0.96736485, 0.21963628, 0.12635323, -0.05210274,
+                          0.15142939, 0.135675, 0.13254559]],
+                   '4': ['cone', 0.0031622787937521935,
+                         [-0.09727754, 0.19222474, -0.06608868, 0.63896155,
+                          -0.30938858, -0.70427746, 0.77718037]],
+                   '5': ['cylinder', 0.0031622787937521935,
+                         [-0.40454674, -0.41748285, 0.81366456, -0.00376939,
+                          0.00700105, 0.00171806, 0.15707304]]},
+                  {'0': ['sphere', 0.0031622787937521935,
+                         [0.02077555, 0.06649236, 0.11027005, 0.12541665]],
+                   '1': ['cone', 0.0031622787937521935,
+                         [0.05986045, -0.18971793, -0.16161919, -0.34339491,
+                          0.03381877, -0.93858212, 0.71842104]],
+                   '2': ['plane', 0.0031622787937521935,
+                         [0.08674083, 0.99560606, -0.03527949, 0.01372906]],
+                   '3': ['cone', 0.0031622787937521935,
+                         [0.0927892, 0.05163581, 0.20938601, -0.54639679,
+                          -0.70455825, 0.45282224, 0.64793223]],
+                   '4': ['sphere', 0.0031622787937521935,
+                         [0.03006885, 0.09069792, -0.09003825, 0.11454123]],
+                   '5': ['cone', 0.0031622787937521935,
+                         [0.18505758, 0.0377964, 0.05766876, -0.99674582,
+                          0.01964696, -0.07817777, 0.87639046]]},
+                  {'0': ['cone', 0.0031622787937521935,
+                         [0.19561017, -0.07541045, -0.14106749, -0.71800888,
+                          -0.64559692, -0.26013038, 0.32892209]],
+                   '1': ['cone', 0.0031622787937521935,
+                         [0.12635715, 0.11556537, 0.26420444, -0.75937146,
+                          0.57730788, -0.30011749, 0.86725372]],
+                   '2': ['cylinder', 0.0031622787937521935,
+                         [-0.01945804, 0.27459621, 0.96136278, -0.10927684,
+                          -0.03535864, 0.0078878, 0.19438639]],
+                   '3': ['plane', 0.0031622787937521935,
+                         [-0.07222927, 0.46952587, 0.87995934, -0.12699009]],
+                   '4': ['sphere', 0.0031622787937521935,
+                         [0.03362903, 0.43555865, -0.13926615, 0.23711622]],
+                   '5': ['cylinder', 0.0031622787937521935,
+                         [0.97915494, 0.17385492, -0.1050241, 0.06032476,
+                          -0.17924741, 0.26569375, 0.09988147]]},
+                  {'0': ['cone', 0.0031622787937521935,
+                         [0.07370789, -0.05604468, -0.26815304, -0.45459375,
+                          -0.47672257, -0.75238305, 0.37942258]],
+                   '1': ['cylinder', 0.0031622787937521935,
+                         [0.67197543, -0.39058679, 0.62919873, 0.097628,
+                          0.21424794, 0.02873305, 0.1607088]],
+                   '2': ['cone', 0.0031622787937521935,
+                         [0.22028394, -0.19486739, -0.10853441, -0.72444671,
+                          0.54889882, 0.41699779, 0.28183573]],
+                   '3': ['cylinder', 0.0031622787937521935,
+                         [-0.41564086, 0.46452171, 0.78196061, -0.06240603,
+                          -0.20580481, 0.08908672, 0.16068208]],
+                   '4': ['plane', 0.0031622787937521935,
+                         [0.92095762, 0.22982925, 0.31466737, 0.00677742]],
+                   '5': ['cone', 0.0031622787937521935,
+                         [0.20804538, 0.01949878, -0.00790939, -0.28767616,
+                          -0.36679944, 0.88470376, 0.30047989]]},
+                  {'0': ['cylinder', 0.0031622787937521935,
+                         [0.96911395, -0.14034523, 0.20278415, -0.0212851,
+                          -0.19417364, -0.03266359, 0.11902162]],
+                   '1': ['sphere', 0.0031622787937521935,
+                         [0.00925934, 0.13378771, -0.17467573, 0.30086511]],
+                   '2': ['sphere', 0.0031622787937521935,
+                         [-0.05544241, 0.0096046, -0.16684605, 0.312787]],
+                   '3': ['cone', 0.0031622787937521935,
+                         [0.19717112, -0.05250087, 0.02137174, -0.72527677,
+                          0.32155749, -0.60874832, 0.25539228]],
+                   '4': ['plane', 0.0031622787937521935,
+                         [0.68560386, 0.05129248, 0.72616541, 0.20724298]],
+                   '5': ['plane', 0.0031622787937521935,
+                         [-0.11710124, 0.51656842, 0.84820074, 0.26170966]]},
+                  {'0': ['plane', 0.0031622787937521935,
+                         [0.88994884, -0.33300567, -0.31160596, -0.00795007]],
+                   '1': ['cylinder', 0.0031622787937521935,
+                         [0.91520083, -0.00487428, -0.40296859, -0.00869696,
+                          -0.05420807, -0.01909638, 0.15573321]],
+                   '2': ['plane', 0.0031622787937521935,
+                         [0.58568865, 0.78024876, 0.21950042, 0.24486686]],
+                   '3': ['cylinder', 0.0031622787937521935,
+                         [-0.42272446, 0.66914088, 0.61119115, -0.0051266,
+                          -0.01184947, 0.0094272, 0.2393316]],
+                   '4': ['plane', 0.0031622787937521935,
+                         [0.81059474, -0.58341247, -0.05065563, 0.10082482]],
+                   '5': ['cylinder', 0.0031622787937521935,
+                         [0.81407368, -0.52877921, 0.24015968, -0.05561622,
+                          -0.09075011, -0.0112886, 0.21872561]]},
+                  {'0': ['cylinder', 0.0031622787937521935,
+                         [-0.55049419, 0.42467809, 0.71875221, 0.01150901,
+                          -0.02269658, 0.02222516, 0.27232078]],
+                   '1': ['cylinder', 0.0031622787937521935,
+                         [-0.36524639, -0.41434494, 0.83361471, 0.00563349,
+                          0.05789594, 0.03124525, 0.16207668]],
+                   '2': ['plane', 0.0031622787937521935,
+                         [-0.43128756, 0.15455972, 0.88887703, 0.02978933]],
+                   '3': ['cone', 0.0031622787937521935,
+                         [-0.08165269, -0.12635778, -0.13374726, 0.39912999,
+                          -0.49486017, -0.77188659, 0.40162241]],
+                   '4': ['sphere', 0.0031622787937521935,
+                         [0.03843725, 0.3077119, 0.14769572, 0.21177337]],
+                   '5': ['cone', 0.0031622787937521935,
+                         [-0.14134699, -0.09660231, -0.02053604, 0.90961319,
+                          -0.38628289, 0.15293577, 0.69823676]]},
+                  {'0': ['plane', 0.0031622787937521935,
+                         [0.43493968, 0.29704344, 0.8500545, 0.21480383]],
+                   '1': ['plane', 0.0031622787937521935,
+                         [-0.26040336, 0.87934816, 0.39866889, 0.06686213]],
+                   '2': ['cone', 0.0031622787937521935,
+                         [-0.01323564, -0.18578026, 0.11266863, 0.19977662,
+                          -0.74863511, -0.63216686, 0.79564059]],
+                   '3': ['cylinder', 0.0031622787937521935,
+                         [0.49211833, 0.83431923, 0.24845743, -0.11674686,
+                          0.07497236, -0.02051703, 0.10040118]],
+                   '4': ['cone', 0.0031622787937521935,
+                         [-0.00686818, 0.06704224, -0.14085199, 0.39107111,
+                          0.07280203, -0.91747665, 0.76964527]],
+                   '5': ['cone', 0.0031622787937521935,
+                         [0.01982915, -0.06818972, 0.12407881, -0.6188345,
+                          0.40322825, -0.67412972, 0.32394886]]}],
+     'residual': [0.0031622787937521935, 0.0031622787937521935,
+                  0.0031622787937521935, 0.0031622787937521935,
+                  0.0031622787937521935, 0.0031622787937521935,
+                  0.0031622787937521935, 0.0031622787937521935],
+     'mean_dist': [0.003162279026582837, 0.003162279026582837,
+                   0.003162279026582837, 0.003162279026582837,
+                   0.003162279026582837, 0.003162279026582837,
+                   0.003162279026582837, 0.003162279026582837],
+     'p_cover': [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+     'covered': [10000, 10000, 10000, 10000, 10000, 10000, 10000, 10000]})
+REF_FIT_KEYS = (
+    {'key7': {'residual': [0.0035829475770394006, 0.0031622787937521935,
+                           0.0031622787937521935, 0.0031622787937521935,
+                           0.0031622787937521935, 0.004324578680098057,
+                           0.0031622787937521935, 0.03692823462188244],
+              'p_cover': [0.9871999621391296, 1.0, 1.0, 1.0, 1.0,
+                          0.9459999799728394, 1.0, 0.7764999866485596]},
+     'key8': {'residual': [0.0035829475770394006, 0.0031622787937521935,
+                           0.0031622787937521935, 0.00316323545606186,
+                           0.0031622787937521935, 0.004324578680098057,
+                           0.0031622787937521935, 0.03692823462188244],
+              'p_cover': [0.9871999621391296, 1.0, 1.0, 1.0, 1.0,
+                          0.9459999799728394, 1.0, 0.7764999866485596]},
+     'key9': {'residual': [0.0035829475770394006, 0.0031622787937521935,
+                           0.0031622787937521935, 0.0031622787937521935,
+                           0.0031622787937521935, 0.004324578680098057,
+                           0.0031622787937521935, 0.03692823462188244],
+              'p_cover': [0.9871999621391296, 1.0, 1.0, 1.0, 1.0,
+                          0.9459999799728394, 1.0, 0.7764999866485596]}})
+FIT_RTOL = 1e-3          # each segment's and each shape's residual (truth)
+FIT_PARAM_ATOL = 1e-3    # canonical fit parameters, cuSOLVER against LAPACK
+FIT_COVER_FLIPS = 5      # points a shape whose 0.01 test may flip (truth)
+# end to end: the mean over JAX's keys, within JAX's spread across them and
+# at least this floor (the port's subsamples come from another generator)
+FIT_FLOOR = {"residual": 0.002, "p_cover": 0.03}
+FIT_REPS = 3
+# the smoke's own record_function ranges around the library's
+FIT_SEGMENT = "fit_pipeline/segment_batch"
+FIT_COVER = "fit_pipeline/p_coverage"
+
+
+def _fit_key_means():
+    return {m: [sum(r[m]) / len(r[m]) for r in REF_FIT_KEYS.values()]
+            for m in ("residual", "p_cover")}
+
+
+def canonical_params(v):
+    """`scripts/jax_fit_reference.py canonical_params`: a geometric fit's
+    parameters flat, the plane's (n, d) and the cylinder's axis turned so
+    that their largest component is positive, the cylinder's centre
+    reduced to its component across the axis."""
+    import numpy as np
+
+    name = v[0]
+    flat = np.concatenate([np.asarray(a, np.float64).reshape(-1)
+                           for a in v[1:]])
+    if name in ("plane", "cylinder"):
+        s = np.sign(flat[np.abs(flat[:3]).argmax()])
+        flat[:4 if name == "plane" else 3] *= s
+    if name == "cylinder":
+        a = flat[:3] / np.linalg.norm(flat[:3])
+        flat[3:6] -= (flat[3:6] @ a) * a
+    return flat
+
+
+def fit_metrics(ev, shapes, labels, types):
+    """`bench.py` record 3 after the clustering: `residual_eval_batch` over
+    the batch, then `p_coverage` of every shape. Returns (results,
+    coverages)."""
+    import numpy as np
+    from torch.profiler import record_function
+    from sednet_tpu_torch.fit import p_coverage
+
+    res = ev.residual_eval_batch([
+        {"points": s["points"], "normals": s["normals"],
+         "labels": s["labels"].astype(np.int64),
+         "cluster_ids": np.asarray(labels[i]).astype(np.int64),
+         "pred_primitives": np.asarray(types[i]).astype(np.int64)}
+        for i, s in enumerate(shapes)])
+    with record_function(FIT_COVER):
+        cov = [p_coverage(s["points"], res[i][1], device=DEVICE)
+               for i, s in enumerate(shapes)]
+    return res, cov
+
+
+def check_fit_ground_truth(ev, shapes):
+    """(a) The fit layer with nothing random in it: the true labels and
+    types as the clustering. Every segment's type and residual, each
+    shape's residual and mean distance (rtol FIT_RTOL), the canonical fit
+    parameters (atol FIT_PARAM_ATOL) and the points within 0.01 (at most
+    FIT_COVER_FLIPS a shape apart) against JAX's."""
+    import numpy as np
+
+    res, cov = fit_metrics(ev, shapes, [s["labels"] for s in shapes],
+                           [s["prim"] for s in shapes])
+    bad, err = [], {"segment_rel": 0.0, "shape_rel": 0.0, "param_abs": 0.0,
+                    "mean_dist_rel": 0.0, "cover_flips": 0}
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    for i, ((loss, par, dist), (mean_d, cover)) in enumerate(zip(res, cov)):
+        ref = REF_FIT_GT["segments"][i]
+        if {str(k) for k in dist} != set(ref):
+            bad.append((i, "segments", sorted(dist), sorted(ref)))
+            continue
+        for k, (name, d) in dist.items():
+            ref_name, ref_d, ref_p = ref[str(k)]
+            if name != ref_name:
+                bad.append((i, k, name, ref_name))
+                continue
+            err["segment_rel"] = max(err["segment_rel"], rel(d, ref_d))
+            err["param_abs"] = max(err["param_abs"], float(np.abs(
+                canonical_params(par[k]) - np.asarray(ref_p)).max()))
+        err["shape_rel"] = max(err["shape_rel"],
+                               rel(loss[0], REF_FIT_GT["residual"][i]))
+        err["mean_dist_rel"] = max(err["mean_dist_rel"],
+                                   rel(mean_d, REF_FIT_GT["mean_dist"][i]))
+        err["cover_flips"] = max(err["cover_flips"], abs(
+            int(round(cover * N_POINTS)) - REF_FIT_GT["covered"][i]))
+    ok = (not bad and max(err["segment_rel"], err["shape_rel"],
+                          err["mean_dist_rel"]) <= FIT_RTOL
+          and err["param_abs"] <= FIT_PARAM_ATOL
+          and err["cover_flips"] <= FIT_COVER_FLIPS)
+    return {"ok": ok, "max_err": err, "mismatch": bad,
+            "residual": float(np.mean([r[0][0] for r in res])),
+            "p_cover": float(np.mean([c[1] for c in cov])),
+            "tol": {"rtol": FIT_RTOL, "param_atol": FIT_PARAM_ATOL,
+                    "cover_flips": FIT_COVER_FLIPS}}
+
+
+def _fit_batch(shapes):
+    """The ground-truth segments of the batch as `_batched_geometric_fits`
+    pads them: points, normals, weights (S, P_max)."""
+    import numpy as np
+
+    segs = [(s["points"][s["labels"] == k], s["normals"][s["labels"] == k])
+            for s in shapes for k in np.unique(s["labels"])]
+    p_max = max(p.shape[0] for p, _ in segs)
+    pts = np.zeros((len(segs), p_max, 3), np.float32)
+    nrm = np.zeros_like(pts)
+    w = np.zeros((len(segs), p_max), np.float32)
+    for i, (p, n) in enumerate(segs):
+        pts[i, :len(p)], nrm[i, :len(p)], w[i, :len(p)] = p, n, 1.0
+    return pts, nrm, w
+
+
+def phase_fit_pipeline(models, shapes, x):
+    """`bench.py` record 3 on the port: `segment_batch` on the 8 clouds,
+    then `Evaluation.residual_eval_batch` (eval mode, no refit), then
+    `p_coverage` on every shape. (a) `check_fit_ground_truth`; (b) residual
+    and p_cover on the port's own labels within JAX's spread across keys
+    (FIT_FLOOR at least). Launches from one run, which is also the
+    warm-up; shapes/s the median of FIT_REPS synced runs with each part's
+    host time; one run under torch.profiler for each stage's host and
+    device ms; the batched fit and its SVD alone timed on the batch's
+    segments."""
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+    from sednet_tpu_torch.fit import Evaluation, FittingModule
+    from sednet_tpu_torch.fit.evaluation import STAGES
+    from sednet_tpu_torch.fit.primitives import fit_all_types_packed
+    from sednet_tpu_torch.predict import segment_batch
+
+    model = models["inst"]
+    ev = Evaluation(FittingModule(device=DEVICE))
+    truth = check_fit_ground_truth(ev, shapes)
+    gen = torch.Generator().manual_seed(5)
+    split = {"segment_batch": [], "fits_residuals_coverage": []}
+
+    def run():
+        t0 = time.time()
+        with record_function(FIT_SEGMENT):
+            labels, types = segment_batch(model, x, generator=gen)
+            labels, types = labels.cpu().numpy(), types.cpu().numpy()
+        t1 = time.time()
+        res, cov = fit_metrics(ev, shapes, labels, types)
+        split["segment_batch"].append(t1 - t0)
+        split["fits_residuals_coverage"].append(time.time() - t1)
+        return labels, res, cov
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    labels, res, cov = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("K1", "K2", "K3", "K6"):
+        if counts[name] <= 0:
+            raise AssertionError(f"fit_pipeline launched {name} no time")
+    if labels.shape != (BATCH, N_POINTS) or len(res) != BATCH:
+        raise AssertionError(f"fit_pipeline: labels {labels.shape}, "
+                             f"{len(res)} results")
+    got = {"residual": float(np.mean([r[0][0] for r in res])),
+           "p_cover": float(np.mean([c[1] for c in cov]))}
+    means = _fit_key_means()
+    ref = {m: sum(v) / len(v) for m, v in means.items()}
+    tol = {m: max(FIT_FLOOR[m], max(v) - min(v)) for m, v in means.items()}
+    e2e_ok = all(np.isfinite(got[m]) and abs(got[m] - ref[m]) <= tol[m]
+                 for m in got)
+    for v in split.values():
+        v.clear()
+    ts = []
+    for _ in range(FIT_REPS):
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        ts.append(time.time() - t0)
+    med = float(np.median(ts))
+    host_split = {k: float(np.median(v)) for k, v in split.items()}
+    profile = _device_profile(run, "fit_pipeline_trace.json",
+                              (FIT_SEGMENT,) + STAGES + (FIT_COVER,))
+
+    pts, nrm, w = (torch.from_numpy(a).to(DEVICE) for a in _fit_batch(shapes))
+    svd_in = w[..., None] * nrm
+    pc, nc, wc = pts.cpu(), nrm.cpu(), w.cpu()
+    t0 = time.time()
+    fit_all_types_packed(pc, nc, wc)
+    fits = {"segments": int(pts.shape[0]), "points_padded": int(pts.shape[1]),
+            "packed_fit_cpu_ms": 1e3 * (time.time() - t0),
+            "packed_fit_ms": time_ms(
+                lambda: fit_all_types_packed(pts, nrm, w)),
+            "svd_ms": time_ms(lambda: torch.linalg.svd(
+                svd_in, full_matrices=False))}
+    ok = truth["ok"] and e2e_ok
+    emit({"phase": "fit_pipeline", "ok": ok,
+          "shapes_per_s": BATCH / med, "batch_s_median": med,
+          "batch_s_min": min(ts), "batch_s_max": max(ts),
+          "timing": f"median of {FIT_REPS} synced batches after one",
+          "host_split_s": host_split, "profile": profile,
+          "peak_mem_gib": peak_gib, **got, "ref": ref, "tol": tol,
+          "per_shape": [[r[0][0], c[1], int(lab.max()) + 1]
+                        for r, c, lab in zip(res, cov, labels)],
+          "ground_truth": truth, "fits": fits, "launches": counts})
+    if not ok:
+        raise AssertionError(f"fit_pipeline: ground truth {truth}, end to "
+                             f"end {got} against {ref} +- {tol}")
+    return counts
+
+
+# fit_splines: seeded B-spline patches, (label, points) each: 2 an open
+# spline, resampled to 1500 points; 0 a closed one, resampled to 1800
+SPLINE_SEGMENTS = ((2, 2400), (2, 1100), (0, 2600), (0, 1300))
+SPLINE_SEED = 10
+SPLINE_NET_SEEDS = (31, 32)   # init_like_flax generators: open, closed
+SPLINE_GRID_TOL = 1e-4        # control grid and surface, card against CPU
+SPLINE_RES_RTOL = 1e-3        # a segment's residual, card against CPU
+
+
+def spline_clouds():
+    """SPLINE_SEGMENTS as fit_one_shape's segment dicts: points of a smooth
+    random surface through the port's `sample_from_control_grid` (8 x 8
+    control grid), plus noise 0.002. Open: a bumpy sheet; closed: a bumpy
+    tube whose first and last control rows coincide."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.fit.bspline import (sample_from_control_grid,
+                                              uniform_knot_bspline)
+
+    rng = np.random.RandomState(SPLINE_SEED)
+    nu, nv = uniform_knot_bspline(8, 8, 3, 3, 60)
+    t = np.linspace(0.0, 1.0, 8)
+    segs = []
+    for i, (label, n) in enumerate(SPLINE_SEGMENTS):
+        if label == 2:
+            u, v = np.meshgrid(t - 0.5, t - 0.5, indexing="ij")
+            ctrl = np.stack([u, v, rng.randn(8, 8) * 0.12], -1)
+        else:
+            ang = 2 * np.pi * t[:, None] + np.zeros((8, 8))
+            r = 0.3 + rng.randn(8, 8) * 0.03
+            r[-1] = r[0]
+            ctrl = np.stack([r * np.cos(ang), r * np.sin(ang),
+                             np.broadcast_to(t - 0.5, (8, 8))], -1)
+        surf = sample_from_control_grid(
+            torch.from_numpy(nu), torch.from_numpy(nv),
+            torch.from_numpy(ctrl.reshape(1, 64, 3).astype(np.float32)), 8,
+            8)[0].numpy()
+        pts = surf[rng.choice(surf.shape[0], n, replace=False)]
+        segs.append({"id": i, "label": label, "points": (
+            pts + rng.randn(n, 3) * 0.002).astype(np.float32)})
+    return segs
+
+
+def _record_graphs(graphs, replay=()):
+    """Wrap SplineNet's kNN so that every call appends (input, indices) to
+    graphs, its indices popped from `replay` (moved to the input's device)
+    while that holds any, else its own; returns the function that undoes
+    it."""
+    from sednet_tpu_torch.models import splinenet as sn
+
+    real = sn.knn_indices
+    replay = list(replay)
+
+    def recording(x, k):
+        idx = replay.pop(0).to(x.device) if replay else real(x, k)
+        graphs.append((x.detach().clone(), idx))
+        return idx
+
+    sn.knn_indices = recording
+
+    def undo():
+        sn.knn_indices = real
+    return undo
+
+
+def _spline_run(fitter, segs, replay=(), count=False):
+    """fit_one_shape(eval_mode=True) of the spline segments with its graphs
+    and control grids recorded (graphs replayed from `replay`); returns
+    the run's record, with the launch counts when count is set."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.fit import fit_one_shape
+    from sednet_tpu_torch.fit.residuals import residual_loss_batched
+
+    graphs, controls = [], []
+    hooks = [net.register_forward_hook(
+        lambda m, i, o: controls.append(o.detach()))
+        for net in (fitter.open_net, fitter.closed_net)]
+    undo = _record_graphs(graphs, replay)
+    try:
+        torch.cuda.synchronize()
+        if count:
+            reset_counts()
+        t0 = time.time()
+        params, recon = fit_one_shape(segs, fitter, eval_mode=True,
+                                      rng=np.random.RandomState(0))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts() if count else None
+    finally:
+        undo()
+        for h in hooks:
+            h.remove()
+    dist = residual_loss_batched({s["id"]: s["points"] for s in segs},
+                                 params, sqrt=True, device=fitter.device)
+    return {"graphs": graphs, "controls": controls, "recon": recon,
+            "dist": dist, "wall_s": wall, "counts": counts}
+
+
+def _spline_diff(a, b, sid, i):
+    """Control grid and surface max abs difference and the residuals'
+    relative difference of segment i (id sid) between runs a and b."""
+    grid = float((a["controls"][i].cpu() - b["controls"][i].cpu())
+                 .abs().max())
+    surf = float((a["recon"][sid].cpu() - b["recon"][sid].cpu()).abs().max())
+    ra, rb = float(a["dist"][sid][1]), float(b["dist"][sid][1])
+    return {"grid_max_abs_diff": grid, "surface_max_abs_diff": surf,
+            "residual_rel_diff": abs(ra - rb) / abs(rb),
+            "within": max(grid, surf) <= SPLINE_GRID_TOL
+            and abs(ra - rb) <= SPLINE_RES_RTOL * abs(rb)}
+
+
+def phase_fit_splines():
+    """Spline segments through `fit_one_shape(eval_mode=True)` and SplineNet
+    at full width (grid 20, k 10, sample grid 30) on the card and on the
+    CPU port, with the same weights (`init_like_flax`, SPLINE_NET_SEEDS)
+    and the same RandomState: K1 launched 4 times a segment; each graph's
+    neighbour sets, K1 against `topk_plain` on the card's inputs
+    (`compare_with_plain`: swaps only inside near-ties) and the card's
+    against the CPU's own; the control grids, surfaces and residuals held
+    within SPLINE_GRID_TOL / SPLINE_RES_RTOL against the CPU run that
+    replays the card's graphs (every segment), and against the CPU's own
+    graphs where the four graphs' sets agree (reported elsewhere). Timed:
+    one SplineNet forward at 1500 and 1800 points, one refit
+    (if_optimize), and K1 at the new shape class in the `kernels` style.
+    Returns (counts, K1 cases)."""
+    import copy
+
+    import torch
+    from sednet_tpu_torch.fit import FittingModule, fit_one_shape
+    from sednet_tpu_torch.models.init import init_like_flax
+    from sednet_tpu_torch.models.splinenet import SplineNet
+    from sednet_tpu_torch.ops.flash_topk import compare_with_plain, flash_topk
+
+    nets = [init_like_flax(SplineNet(), torch.Generator().manual_seed(s))
+            for s in SPLINE_NET_SEEDS]
+    cpu_fitter = FittingModule(*copy.deepcopy(nets), device="cpu")
+    card_fitter = FittingModule(*nets, device=DEVICE)
+    segs = spline_clouds()
+    card = _spline_run(card_fitter, segs, count=True)
+    counts = card["counts"]
+    if counts["K1"] != 4 * len(segs):
+        raise AssertionError(f"fit_splines: K1 launched {counts['K1']} "
+                             f"times for {len(segs)} spline segments")
+    cpu = _spline_run(cpu_fitter, segs)
+    replayed = _spline_run(cpu_fitter, segs,
+                           replay=[idx for _, idx in card["graphs"]])
+
+    per_seg, ok = [], True
+    for i, s in enumerate(segs):
+        rows = []
+        sets_equal = True
+        for g in range(4):
+            xg, idx = card["graphs"][4 * i + g]
+            _, idx_cpu = cpu["graphs"][4 * i + g]
+            again, dist_k = flash_topk(xg, xg, 10, return_distances=True)
+            cmp = compare_with_plain(xg, xg, 10, again, dist_k)
+            # swaps only inside near-ties, which the resampled clouds'
+            # close points make common (no MAX_SWAPPED share)
+            if (cmp["bad_rows"] or not torch.equal(again, idx)
+                    or max(cmp["max_abs_err"], cmp["nbr_err"]) > cmp["tol"]):
+                raise AssertionError(f"fit_splines: K1 segment {i} graph "
+                                     f"{g}: {cmp}")
+            differ = int((idx.sort(-1).values.cpu()
+                          != idx_cpu.sort(-1).values).any(-1).sum())
+            sets_equal &= differ == 0
+            rows.append({"width": int(xg.shape[-1]),
+                         "tie_rows": cmp["tie_rows"],
+                         "swapped_vs_plain": cmp["swapped_rows"],
+                         "rows_differing_vs_cpu": differ})
+        surf = card["recon"][s["id"]]
+        if surf is None or not torch.isfinite(surf).all() or \
+                tuple(surf.shape) != ((930 if s["label"] == 0 else 900), 3):
+            raise AssertionError(f"fit_splines: segment {i} surface "
+                                 f"{None if surf is None else surf.shape}")
+        vs_replay = _spline_diff(card, replayed, s["id"], i)
+        vs_cpu = _spline_diff(card, cpu, s["id"], i)
+        ok &= vs_replay["within"] and (vs_cpu["within"] or not sets_equal)
+        per_seg.append({"label": s["label"], "points": len(s["points"]),
+                        "resampled": int(card["graphs"][4 * i][0].shape[1]),
+                        "graphs": rows, "sets_equal_vs_cpu": sets_equal,
+                        "vs_cpu_card_graphs": vs_replay,
+                        "vs_cpu_own_graphs": vs_cpu,
+                        "residual": float(card["dist"][s["id"]][1])})
+
+    # one SplineNet forward at 1500 and 1800 points, and one refit
+    by_n = {}
+    for i, s in enumerate(segs):
+        by_n.setdefault(int(card["graphs"][4 * i][0].shape[1]), i)
+    forward_ms = {}
+    for n, i in sorted(by_n.items()):
+        xg = card["graphs"][4 * i][0]
+        net = card_fitter.open_net if segs[i]["label"] == 2 \
+            else card_fitter.closed_net
+        w1 = torch.ones(xg.shape[:2], device=xg.device)
+        with torch.no_grad():
+            forward_ms[str(n)] = time_ms(lambda: net(xg, weights=w1), reps=5)
+    closed = [s for s in segs if s["label"] == 0][:1]
+    walls = {}
+    for opt in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fit_one_shape(closed, card_fitter, eval_mode=True, if_optimize=opt)
+        torch.cuda.synchronize()
+        walls.setdefault(opt, []).append(time.time() - t0)
+    refit_s = min(walls[True]) - min(walls[False])
+
+    # K1 at the new shape class: B = 1, k = 10, D = 3 / 64 / 128
+    cases = [card["graphs"][4 * by_n[1500] + g][0] for g in (0, 1, 3)]
+    cases.append(card["graphs"][4 * by_n[1800]][0])
+    k1 = [check_topk(f"spline knn {tuple(xg.shape)} k=10", xg, xg, 10,
+                     max_swapped=None) for xg in cases]
+    emit({"phase": "fit_splines", "ok": ok, "segments": per_seg,
+          "k1_launches": counts["K1"], "launches": counts,
+          "fit_one_shape_s": {"card": card["wall_s"], "cpu": cpu["wall_s"]},
+          "splinenet_forward_ms": forward_ms,
+          "refit_s": refit_s, "refit_walls_s": {str(k): v for k, v in
+                                                walls.items()},
+          "k1": k1, "tol": {"grid": SPLINE_GRID_TOL,
+                            "residual_rtol": SPLINE_RES_RTOL}})
+    if not ok:
+        raise AssertionError(f"fit_splines: {per_seg}")
+    return counts, k1
 
 
 def distinct_fraction(idx, order, run):
@@ -2070,6 +2693,9 @@ def main():
     pred = phase_predict_all(models, shapes)
     cli_counts = phase_predict_cli(models, shapes,
                                    pred["predict"]["launches"])
+    fit_counts = phase_fit_pipeline(models, shapes, x)
+    spline_counts, k1_spline = phase_fit_splines()
+    timings["K1"].extend(k1_spline)
     gen = torch.Generator().manual_seed(8)
     big_inputs = ([torch.randn((BIG_POINTS, 12), generator=gen)
                    for _ in range(BIG_BATCH)],
@@ -2082,10 +2708,15 @@ def main():
     train_counts, k6b = phase_train(models, card)
     timings["K6b"] = k6b
     # each kernel's launches from the path of this smoke that runs it: K1,
-    # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds, K2 from
-    # the headline, K4 from the eval's fused form, K5 from the "pallas"
-    # enrichment of the large clouds
+    # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds (K1 also
+    # from the fit pipeline and the spline fits), K2 from the headline, K4
+    # from the eval's fused form, K5 from the "pallas" enrichment of the
+    # large clouds
     counts.update({k: cli_counts[k] for k in ("K1", "K2b", "K3", "K6")})
+    k1_by_path = {"predict_cli": cli_counts["K1"],
+                  "fit_pipeline": fit_counts["K1"],
+                  "fit_splines": spline_counts["K1"]}
+    counts["K1"] = sum(k1_by_path.values())
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]
     counts["K6b"] = train_counts["K6b"]
@@ -2106,7 +2737,8 @@ def main():
             "bound_by": main_case["bound_by"],
             "bound_f32_ms": main_case.get("bound_f32_ms"),
             "library_ms": main_case["library_ms"],
-            "case": main_case["case"], "parity": "ok"})
+            "case": main_case["case"], "parity": "ok",
+            **({"launches_by_path": k1_by_path} if key == "K1" else {})})
     emit({"phase": "done", "seconds": time.time() - T_START})
     print(card, flush=True)
     emit({"kernels": summary})

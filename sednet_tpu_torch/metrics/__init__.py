@@ -1,7 +1,8 @@
 from sednet_tpu_torch.metrics.segmentation import (
-    batch_iou, siou_matched_segments, siou_matched_segments_usecd,
-    siou_matched_segments_usecd_batch, to_one_hot)
+    batch_iou, hungarian_match, relaxed_iou_fast, siou_matched_segments,
+    siou_matched_segments_usecd, siou_matched_segments_usecd_batch,
+    to_one_hot)
 
-__all__ = ["batch_iou", "siou_matched_segments",
-           "siou_matched_segments_usecd", "siou_matched_segments_usecd_batch",
-           "to_one_hot"]
+__all__ = ["batch_iou", "hungarian_match", "relaxed_iou_fast",
+           "siou_matched_segments", "siou_matched_segments_usecd",
+           "siou_matched_segments_usecd_batch", "to_one_hot"]

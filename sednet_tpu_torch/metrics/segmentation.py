@@ -81,6 +81,16 @@ def batch_iou(shapes, labels, types):
             float(np.mean([p[1] for p in per])), per)
 
 
+def relaxed_iou_fast(pred, gt):
+    """Soft IoU between one-hot segmentations, pred (B, N, K) and gt
+    (B, N, K') tensors -> (B, K, K') (reference:
+    src/segment_utils.py:609-627; `sednet_tpu/metrics/segmentation.py:32`)."""
+    dots = torch.einsum("bnk,bnl->bkl", pred, gt)
+    norms_p = pred.sum(1)[:, :, None]
+    norms_g = gt.sum(1)[:, None, :]
+    return dots / (norms_p + norms_g - dots + 1e-7)
+
+
 def _relaxed_cost_from_labels(preds, targets):
     """(B, N) integer predicted and true ids (tensors) -> (B, 50, 50)
     float32 1 - relaxed IoU, the one-hots built on the ids' device. Ids of
@@ -88,10 +98,7 @@ def _relaxed_cost_from_labels(preds, targets):
     k = torch.arange(N_SEG, device=preds.device)
     ph = (preds[..., None] == k).float()
     gh = (targets.to(preds.device)[..., None] == k).float()
-    dots = torch.einsum("bnk,bnl->bkl", ph, gh)
-    norms_p = ph.sum(1)[:, :, None]
-    norms_g = gh.sum(1)[:, None, :]
-    return 1.0 - dots / (norms_p + norms_g - dots + 1e-7)
+    return 1.0 - relaxed_iou_fast(ph, gh)
 
 
 def hungarian_match(cost: np.ndarray):

@@ -4,8 +4,9 @@ torch's `nn.Linear` draws its weights and biases from a uniform of bound
 1/sqrt(fan_in); the JAX package trains from flax's defaults
 (`sednet_tpu/train.py:230 model.init`): Dense kernels `lecun_normal`, a
 normal truncated to two standard deviations scaled to variance 1/fan_in;
-biases zero; GroupNorm scale one and bias zero. `init_like_flax` draws the
-same distributions from an explicit generator. The draws are not flax's
+biases zero; GroupNorm and BatchNorm scale one and bias zero, BatchNorm's
+running mean zero and variance one. `init_like_flax` draws the same
+distributions from an explicit generator. The draws are not flax's
 (another generator); the tests hold the statistics.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from sednet_tpu_torch.models.backbone import GroupNorm
+from sednet_tpu_torch.models.splinenet import BatchNorm
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 # (jax.nn.initializers.variance_scaling's constant)
@@ -34,9 +36,9 @@ def truncated_normal(shape, generator: torch.Generator):
 
 @torch.no_grad()
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-initialise every Linear and GroupNorm of `model` in place as flax
-    initialises Dense and GroupNorm, in the order of `model.modules()`;
-    returns the model."""
+    """Re-initialise every Linear, GroupNorm and BatchNorm of `model` in
+    place as flax initialises Dense, GroupNorm and BatchNorm, in the order
+    of `model.modules()`; returns the model."""
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
             fan_in = mod.weight.shape[1]
@@ -44,7 +46,10 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.weight.copy_(w * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, GroupNorm):
+        elif isinstance(mod, (GroupNorm, BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+            if isinstance(mod, BatchNorm):
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
     return model

@@ -12,7 +12,9 @@ is by name:
   a/b/scale  (GroupNorm)    ->  a.b.weight
 
 which also covers the encoder's edge convolutions
-(`encoder/convN/conv/kernel` -> `encoder.convN.conv.weight`, no bias).
+(`encoder/convN/conv/kernel` -> `encoder.convN.conv.weight`, no bias), and
+BatchNorm's running statistics (`a/b/mean`, `a/b/var` -> the buffers
+`a.b.mean`, `a.b.var`; SplineNet's "batch_stats/" part).
 `flat_from_params` and `save_params_npz` are the way back: the trainer's
 checkpoints are flat `.npz` files that JAX's `load_params` reads.
 """
@@ -24,8 +26,10 @@ import torch
 from sednet_tpu_torch.config import Config
 from sednet_tpu_torch.device import resolve_device
 from sednet_tpu_torch.models.sednet import SEDNet
+from sednet_tpu_torch.models.splinenet import SplineNet
 
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+         "mean": "mean", "var": "var"}
 
 
 def params_from_flat(flat, prefix: str = "inst") -> dict:
@@ -114,4 +118,19 @@ def load_checkpoint(path: str, cfg: Config | None = None,
     dev = resolve_device(device)
     model = SEDNet.from_config(cfg or Config())
     model.load_state_dict(load_params(path), strict=True)
+    return model.to(dev).eval()
+
+
+def splinenet_from_variables(flat, grid_size: int = 20, k: int = 10,
+                             device=None) -> SplineNet:
+    """A SplineNet holding JAX SplineNet variables: flat has the
+    "params/..." and "batch_stats/..." arrays of the flax variable dict, as
+    `sednet_tpu/train.py:248 save_params_npz` flattens it (a dict or an
+    opened `.npz`). Strict: every parameter and running statistic of the
+    model must be there, with its shape. In eval mode."""
+    dev = resolve_device(device)
+    model = SplineNet(grid_size=grid_size, k=k)
+    sd = params_from_flat(flat, "params")
+    sd.update(params_from_flat(flat, "batch_stats"))
+    model.load_state_dict(sd, strict=True)
     return model.to(dev).eval()

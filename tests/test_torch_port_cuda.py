@@ -5,6 +5,8 @@ machine that has only PyTorch:
 
     python -m pytest tests/test_torch_port_cuda.py -q
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -978,3 +980,138 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
     for key, want in out["cpu"][2].items():
         rel = float((out["cuda"][2][key] - want).norm() / want.norm())
         assert rel <= 1e-3, (key, rel)
+
+
+# The fit path's shape class: one cloud (B = 1) of 1000-1800 points, not a
+# multiple of the block, k = 10 (a partial 32-entry list), D = 3 (the
+# CUDA-core walk) and 64 / 128 (the tensor-core walk): SplineNet's graphs.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1500, 1801])
+@pytest.mark.parametrize("d", [3, 64, 128])
+def test_flash_topk_kernel_spline_shapes(cuda, n, d):
+    rng = np.random.RandomState(n + d)
+    x = (rng.randn(1, n, d) * np.linspace(1.0, 0.1, d)).astype(np.float32)
+    t = torch.from_numpy(x).to(cuda)
+    _topk_holds(t, t, 10)
+
+
+def _fit_segments(rng):
+    from sednet_tpu_torch.data.synthetic import _SAMPLERS
+
+    segs = []
+    for label, sampler in sorted(_SAMPLERS.items()):
+        for n in (60, 700, 3000):
+            p, nrm, _ = sampler(rng, n)
+            segs.append((label, (p + rng.randn(n, 3) * 0.003).astype(
+                np.float32), nrm.astype(np.float32),
+                rng.uniform(0.3, 1.0, n).astype(np.float32)))
+    return segs
+
+
+def _canon_fit(row, label):
+    """A segment's own-type slot of a packed fit, signs fixed and the
+    cylinder's centre across its axis (as chip_smoke.canonical_params)."""
+    name = {1: "plane", 5: "sphere", 4: "cylinder", 3: "cone"}[label]
+    sl = {"plane": slice(0, 4), "sphere": slice(4, 8),
+          "cylinder": slice(8, 15), "cone": slice(15, 22)}[name]
+    v = np.asarray(row[sl], np.float64).copy()
+    if name in ("plane", "cylinder"):
+        v[:4 if name == "plane" else 3] *= np.sign(v[np.abs(v[:3]).argmax()])
+    if name == "cylinder":
+        a = v[:3] / np.linalg.norm(v[:3])
+        v[3:6] -= (v[3:6] @ a) * a
+    return v
+
+
+@pytest.mark.cuda
+def test_batched_fits_on_card_match_cpu(cuda):
+    """The packed fits (cuSOLVER's batched SVD, the solves) against the CPU
+    port's (LAPACK), own-type slots at atol 1e-3 after the sign
+    canonicalisation; 500 more rows of zero weight change nothing."""
+    from sednet_tpu_torch.fit.primitives import fit_all_types_packed
+
+    segs = _fit_segments(np.random.RandomState(3))
+
+    def packed(extra, dev):
+        p_max = max(s[1].shape[0] for s in segs) + extra
+        arrs = [np.zeros((len(segs), p_max, 3), np.float32),
+                np.zeros((len(segs), p_max, 3), np.float32),
+                np.zeros((len(segs), p_max), np.float32)]
+        for i, (_, p, n, w) in enumerate(segs):
+            arrs[0][i, :len(p)], arrs[1][i, :len(p)] = p, n
+            arrs[2][i, :len(p)] = w
+        out = fit_all_types_packed(*(torch.from_numpy(a).to(dev)
+                                     for a in arrs))
+        return out.cpu().numpy()
+
+    card, cpu, card_pad = packed(0, cuda), packed(0, "cpu"), packed(500, cuda)
+    assert np.isfinite(card).all()
+    for i, (label, *_rest) in enumerate(segs):
+        np.testing.assert_allclose(_canon_fit(card[i], label),
+                                   _canon_fit(cpu[i], label), atol=1e-3)
+        np.testing.assert_allclose(_canon_fit(card_pad[i], label),
+                                   _canon_fit(card[i], label), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_splinenet_on_card_matches_cpu(cuda, monkeypatch):
+    """SplineNet at full width on seeded weights, card against CPU at 1500
+    points: K1's four graphs against topk_plain, then the CPU replaying the
+    card's graphs (so that a near-tie swap cannot move a max), control
+    grid at atol 1e-4; K1 four launches a forward."""
+    from sednet_tpu_torch.models import splinenet as sn
+    from sednet_tpu_torch.models.init import init_like_flax
+
+    graphs, replay = [], []
+    real = sn.knn_indices
+
+    def record_or_replay(x, k):
+        if replay:
+            return replay.pop(0).to(x.device)
+        graphs.append((x.detach().clone(), real(x, k)))
+        return graphs[-1][1]
+
+    monkeypatch.setattr(sn, "knn_indices", record_or_replay)
+    net = init_like_flax(sn.SplineNet(), torch.Generator().manual_seed(4))
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((rng.randn(1, 1500, 3) * np.array(
+        [1.0, 0.6, 0.05])).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.2, 1.0, (1, 1500)).astype(np.float32))
+    card_net = copy.deepcopy(net).to(cuda)
+    before = flash_topk.launches
+    with torch.no_grad():
+        got = card_net(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_topk.launches == before + 4
+    for xg, idx in graphs:
+        again, dist = flash_topk(xg, xg, 10, return_distances=True)
+        assert torch.equal(again, idx)
+        cmp = compare_with_plain(xg, xg, 10, again, dist)
+        assert cmp["bad_rows"] == 0 and cmp["max_abs_err"] <= cmp["tol"]
+        assert cmp["swapped_rows"] <= 0.01 * cmp["rows"], cmp
+    replay[:] = [idx for _, idx in graphs]
+    with torch.no_grad():
+        want = net(x, w)
+    assert not replay
+    assert torch.isfinite(got).all() and tuple(got.shape) == (1, 400, 3)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fit_ground_truth_on_card_matches_jax_reference(cuda):
+    """chip_smoke's check (a): the 8 eval clouds' true segments fitted on
+    the card, each segment's residual and parameters against the numbers
+    of scripts/jax_fit_reference.py that chip_smoke.py embeds."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+    from sednet_tpu_torch.fit import Evaluation, FittingModule
+    from sednet_tpu_torch.predict import headline_shapes
+
+    shapes, _ = headline_shapes(chip_smoke.BATCH, chip_smoke.N_POINTS)
+    rec = chip_smoke.check_fit_ground_truth(
+        Evaluation(FittingModule(device=cuda)), shapes)
+    assert rec["ok"], rec

@@ -28,7 +28,10 @@ def test_import_loads_no_jax():
                  "sednet_tpu_torch.train", "sednet_tpu_torch.models.init",
                  "sednet_tpu_torch.losses.edge",
                  "sednet_tpu_torch.losses.embedding",
-                 "sednet_tpu_torch.losses.type_loss"):
+                 "sednet_tpu_torch.losses.type_loss",
+                 "sednet_tpu_torch.fit.evaluation",
+                 "sednet_tpu_torch.fit.arap",
+                 "sednet_tpu_torch.models.splinenet"):
         assert name in MODULES
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
