@@ -66,6 +66,25 @@ is not 0):
              and residuals held where the sets agree; one SplineNet
              forward at 1500 and 1800 points, one refit, and K1 at
              B = 1, k = 10, D = 3 / 64 / 128 against `topk_plain`;
+  checkpoints  both models of checkpoints/bench_10k.npz written in the
+             reference's `.pth` layout (`utils.torch_import`: plain, with
+             `module.`, under "state_dict") into build/checkpoints_smoke/,
+             each read by `weights.load_checkpoint` and run on the 8
+             headline clouds: bit-equal to the `.npz` model's forward,
+             with its launches; each load's seconds (the orbax read is
+             skipped, with the reason printed: no orbax writer without JAX,
+             and no tensorstore beside the card);
+  splinenet_train  SplineNet's supervised trainer at full width (grid 20,
+             k 10, 700 points, batch 4), open and closed, on 40 patches of
+             `make_spline_patches` (no h5py needed): step 1 on the card
+             against the CPU with the card's K1 graphs replayed (metrics,
+             gradients, the parameters after Adam, running statistics),
+             20 steps of `train_spline_arrays` and the test tenth's
+             evaluate into build/splinenet_train/ (K1 4 a forward), a
+             step's median ms, its K1 share from one profiled step, peak
+             memory, the loss at steps 1 and 20; chamfer's backward on the
+             card against the CPU at (4, 900, 3) x (4, 700, 3); K1 at the
+             four graph shapes against `topk_plain`;
   kernels_slice3  K6 (the gather-reduce of the index-route edge conv) at
              the encoder's three layer shapes on the real tables and graphs,
              along the Morton order of the points and along the identity
@@ -1901,6 +1920,368 @@ def phase_fit_splines():
     return counts, k1
 
 
+CKPT_FIELDS = ("embedding", "type_log_prob", "edge_logits")
+
+
+def phase_checkpoints(models, x):
+    """The reference's `.pth` layout on the card: both models of
+    checkpoints/bench_10k.npz written through
+    `utils.torch_import.params_to_torch_state_dict` as a plain state dict,
+    with DataParallel's `module.` prefix, and under "state_dict"
+    (build/checkpoints_smoke/), each read back by `weights.load_checkpoint`
+    (the path `run_prediction` takes) and run on the 8 headline clouds:
+    the outputs must equal those of the `.npz`-loaded model bit for bit,
+    with the same launches.
+    Prints each load's seconds. The orbax read is not run here: writing an
+    orbax directory needs orbax and JAX, which the smoke never imports,
+    and tensorstore is absent beside the card; the CPU tests hold it."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.utils.torch_import import params_to_torch_state_dict
+    from sednet_tpu_torch.weights import load_checkpoint, params_from_flat
+
+    have_ts = importlib.util.find_spec("tensorstore") is not None
+    print("checkpoints: orbax read skipped: writing an orbax directory needs "
+          "orbax and JAX, which this smoke does not import; tensorstore "
+          f"{'is' if have_ts else 'is not'} installed here; "
+          "tests/test_torch_port_checkpoints.py holds the read on the CPU",
+          flush=True)
+    root = os.path.join(ROOT, "build", "checkpoints_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with np.load(os.path.join(ROOT, "checkpoints", "bench_10k.npz")) as flat:
+        parts = {w: params_from_flat(flat, w) for w in ("inst", "type")}
+    loads, ok = [], True
+    for which, sd in parts.items():
+        reset_counts()
+        with torch.no_grad():
+            want = models[which](x)
+        torch.cuda.synchronize()
+        want_counts = read_counts()
+        ref = params_to_torch_state_dict(sd)
+        for layout, obj in (("plain", ref),
+                            ("module", {"module." + k: v
+                                        for k, v in ref.items()}),
+                            ("state_dict", {"state_dict": ref})):
+            path = os.path.join(root, f"{which}_{layout}.pth")
+            torch.save(obj, path)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            model = load_checkpoint(path, device=DEVICE)
+            torch.cuda.synchronize()
+            load_s = time.time() - t0
+            reset_counts()
+            with torch.no_grad():
+                got = model(x)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            equal = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+                     for f in CKPT_FIELDS}
+            ok &= all(equal.values()) and counts == want_counts
+            loads.append({"model": which, "layout": layout, "load_s": load_s,
+                          "bytes": os.path.getsize(path),
+                          "bit_equal_to_npz": equal, "launches": counts,
+                          "npz_launches": want_counts})
+            del model, got
+    emit({"phase": "checkpoints", "ok": ok, "loads": loads,
+          "batch": list(x.shape),
+          "orbax": "skipped: no orbax writer without JAX; CPU tests only",
+          "tensorstore_installed": have_ts})
+    if not ok:
+        raise AssertionError(f"checkpoints: {loads}")
+
+
+SPLINE_TRAIN_PATCHES = 40     # 36 train, 4 test (the 90/10 split)
+SPLINE_TRAIN_POINTS = 700
+SPLINE_TRAIN_STEPS = 20
+SPLINE_TRAIN_RTOL = 1e-4      # step 1's loss and metrics, card against CPU
+SPLINE_TRAIN_PARAM_TOL = 1e-4  # per leaf, relative L2, where sign(g) is sure
+SPLINE_TRAIN_GRAD_TOL = 5e-3  # per leaf, relative L2 (float32 conditioning)
+CHAMFER_ATOL = 1e-6           # chamfer's gradient, card against CPU
+# biases that feed a train-mode BatchNorm over the batch, which removes any
+# shift: their gradient is 0 in exact arithmetic, rounding noise here
+SPLINE_ZERO_GRAD = ("bn5.bias", "conv6.bias", "conv7.bias")
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def spline_step_vs_cpu(points, ctrl, closed):
+    """Step 1 of `train_spline_arrays`' loop (its init, its first batch) on
+    the card and on the CPU, the CPU replaying the card's four K1 graphs:
+    the loss and metrics within SPLINE_TRAIN_RTOL; each gradient within
+    SPLINE_TRAIN_GRAD_TOL relative L2 (SPLINE_ZERO_GRAD: rounding noise on
+    both sides); each parameter after Adam's update within
+    SPLINE_TRAIN_PARAM_TOL relative L2 on the elements whose gradient sign
+    is sure (the CPU's gradient more than 10 times the two sides'
+    difference: Adam's first step is lr * sign(g)), and every element
+    moved by at most lr; the running statistics within
+    SPLINE_TRAIN_PARAM_TOL. Returns (record, the card's graphs)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.fit.bspline import uniform_knot_bspline
+    from sednet_tpu_torch.models.init import init_like_flax
+    from sednet_tpu_torch.models.splinenet import SplineNet
+    from sednet_tpu_torch.splinenet_train import make_spline_train_step
+
+    n_train = max(int(len(points) * 0.9), 1)
+    sel = np.random.RandomState(0).choice(n_train, 4, replace=False)
+    nu, nv = uniform_knot_bspline(20, 20, 3, 3, 30)
+    init = init_like_flax(SplineNet(), torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in init.state_dict().items()}
+    runs, card_graphs = {}, []
+    for dev in (DEVICE, "cpu"):
+        model = copy.deepcopy(init).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                               betas=(0.9, 0.999), eps=1e-8)
+        step, _ = make_spline_train_step(model, opt, nu, nv, closed=closed,
+                                         loss_weight=0.9, grid=20)
+        graphs = []
+        undo = _record_graphs(graphs, [g for _, g in card_graphs])
+        try:
+            metrics = step(torch.from_numpy(points[sel]).to(dev),
+                           torch.from_numpy(ctrl[sel]).to(dev))
+        finally:
+            undo()
+        card_graphs = card_graphs or graphs
+        runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.detach().cpu().double()
+                      for n, p in model.named_parameters()},
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()})
+    (cm, cg, cs), (pm, pg, ps) = runs[DEVICE], runs["cpu"]
+    total = math.sqrt(sum(float((g * g).sum()) for g in pg.values()))
+    rec = {"loss_step1": cm["loss"], "cpu_loss_step1": pm["loss"],
+           "metric_rel_err": {k: abs(cm[k] - pm[k]) / abs(pm[k]) for k in pm},
+           "grad_rel_l2": {}, "param_rel_l2": {}, "sure_share": {},
+           "zero_grad_norm": {}, "stats_rel_l2": {}}
+    moved = 0.0
+    for name in pg:
+        for side in (cs, ps):
+            moved = max(moved, float((side[name] - before[name]).abs().max()))
+        if name in SPLINE_ZERO_GRAD:
+            rec["zero_grad_norm"][name] = max(
+                float(cg[name].norm()), float(pg[name].norm())) / total
+            continue
+        rec["grad_rel_l2"][name] = _rel(cg[name], pg[name])
+        sure = pg[name].abs() > 10 * (cg[name] - pg[name]).abs()
+        rec["sure_share"][name] = float(sure.double().mean())
+        rec["param_rel_l2"][name] = _rel(cs[name][sure].double(),
+                                         ps[name][sure].double())
+    for name in ps:
+        if name.endswith((".mean", ".var")):
+            rec["stats_rel_l2"][name] = _rel(cs[name].double(),
+                                             ps[name].double())
+    rec["moved_max"] = moved
+    ok = (max(rec["metric_rel_err"].values()) <= SPLINE_TRAIN_RTOL
+          and max(rec["grad_rel_l2"].values()) <= SPLINE_TRAIN_GRAD_TOL
+          and max(rec["param_rel_l2"].values()) <= SPLINE_TRAIN_PARAM_TOL
+          and min(rec["sure_share"].values()) > 0.9
+          and max(rec["zero_grad_norm"].values()) <= 1e-5
+          and max(rec["stats_rel_l2"].values()) <= SPLINE_TRAIN_PARAM_TOL
+          and moved <= 1e-3 + 1.2e-7)
+    for key in ("grad_rel_l2", "param_rel_l2", "stats_rel_l2"):
+        worst = max(rec[key], key=rec[key].get)
+        rec[key] = {"max": rec[key][worst], "leaf": worst,
+                    "median": sorted(rec[key].values())[len(rec[key]) // 2]}
+    rec["sure_share"] = min(rec["sure_share"].values())
+    rec["ok"] = ok
+    if not ok:
+        raise AssertionError(f"splinenet_train: step 1 against the CPU {rec}")
+    return rec, card_graphs
+
+
+def check_chamfer_backward(points, ctrl):
+    """Chamfer's backward (`ops.chamfer.chamfer_index`, index_add_) on the
+    card against the CPU at the loss's shapes: the 30 x 30 surface of the
+    true grids (4, 900, 3) against the points (4, 700, 3), with seeded
+    weights on d1 and d2. The distances within CHAMFER_ATOL; the gradients
+    within CHAMFER_ATOL on the rows whose nearest neighbours agree and that
+    no differing pair touches; timed forward and backward on the card."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.fit.bspline import (sample_from_control_grid,
+                                              uniform_knot_bspline)
+    from sednet_tpu_torch.ops.chamfer import chamfer_index, nn_distance
+
+    nu, nv = (torch.from_numpy(a) for a in uniform_knot_bspline(20, 20, 3, 3,
+                                                                30))
+    x = sample_from_control_grid(nu, nv, torch.from_numpy(
+        ctrl[:4].reshape(4, 400, 3)), 20, 20)
+    y = torch.from_numpy(points[:4])
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    w1, w2 = torch.rand(4, 900, generator=gen), torch.rand(4, 700,
+                                                           generator=gen)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        tx = x.to(dev).detach().requires_grad_()
+        ty = y.to(dev).detach().requires_grad_()
+        d1, d2 = chamfer_index(tx, ty)
+        ((w1.to(dev) * d1).sum() + (w2.to(dev) * d2).sum()).backward()
+        idx = nn_distance(tx.detach(), ty.detach())[2:]
+        out[dev] = [t.detach().cpu() for t in (d1, d2, tx.grad, ty.grad,
+                                                *idx)]
+    (d1c, d2c, gxc, gyc, i1c, i2c), (d1p, d2p, gxp, gyp, i1p, i2p) = \
+        out[DEVICE], out["cpu"]
+    ok_x, ok_y = (i1c == i1p), (i2c == i2p)
+    for b in range(4):   # rows a differing pair adds into
+        ok_x[b, i2c[b][~(i2c[b] == i2p[b])]] = False
+        ok_x[b, i2p[b][~(i2c[b] == i2p[b])]] = False
+        ok_y[b, i1c[b][~(i1c[b] == i1p[b])]] = False
+        ok_y[b, i1p[b][~(i1c[b] == i1p[b])]] = False
+    rec = {"shapes": [list(x.shape), list(y.shape)],
+           "dist_max_abs_diff": max(float((d1c - d1p).abs().max()),
+                                    float((d2c - d2p).abs().max())),
+           "grad_max_abs_diff": max(float((gxc - gxp)[ok_x].abs().max()),
+                                    float((gyc - gyp)[ok_y].abs().max())),
+           "grad_scale": max(float(gxp.abs().max()), float(gyp.abs().max())),
+           "index_rows_differing": int((~(i1c == i1p)).sum()
+                                       + (~(i2c == i2p)).sum()),
+           "rows_compared": int(ok_x.sum() + ok_y.sum())}
+    xc, yc = x.to(DEVICE), y.to(DEVICE)
+    w1c, w2c = w1.to(DEVICE), w2.to(DEVICE)
+
+    def fwd_bwd():
+        tx, ty = xc.detach().requires_grad_(), yc.detach().requires_grad_()
+        d1, d2 = chamfer_index(tx, ty)
+        ((w1c * d1).sum() + (w2c * d2).sum()).backward()
+        return tx.grad, ty.grad
+
+    again = fwd_bwd()
+    rec["bit_equal_across_card_runs"] = bool(
+        torch.equal(again[0].cpu(), gxc) and torch.equal(again[1].cpu(), gyc))
+    rec["fwd_bwd_ms"] = time_ms(fwd_bwd)
+    rec["ok"] = (max(rec["dist_max_abs_diff"], rec["grad_max_abs_diff"])
+                 <= CHAMFER_ATOL and rec["rows_compared"] >= 0.99 * 6400)
+    if not rec["ok"]:
+        raise AssertionError(f"splinenet_train: chamfer {rec}")
+    return rec
+
+
+def _kernel_share(trace, key):
+    """Device ms of the kernels whose name holds `key`, and of all kernels,
+    in a chrome trace."""
+    with open(trace) as f:
+        evs = [e for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return (sum(e["dur"] for e in evs if key in e["name"]) / 1e3,
+            sum(e["dur"] for e in evs) / 1e3)
+
+
+def phase_splinenet_train():
+    """SplineNet's supervised trainer at full width (grid 20, k 10, 700
+    points, batch 4, Adam 1e-3, loss_weight 0.9), open and closed, on
+    `make_spline_patches(40, 700, grid 20, seed 0)` (no h5py beside the
+    card: `train_spline_arrays`, the loop `train_splinenet` runs over its
+    h5 file): step 1 held to the CPU (`spline_step_vs_cpu`); 20 steps and
+    the evaluate of the test tenth into build/splinenet_train/<kind>/, K1
+    4 times a forward; one step's median ms, its K1 share under
+    torch.profiler, peak memory; chamfer's backward held to the CPU at the
+    loss's shapes; K1 at the four graph shapes in the `kernels` style.
+    Returns (K1 launches of the two loops, K1 cases)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.fit.bspline import uniform_knot_bspline
+    from sednet_tpu_torch.splinenet_train import (make_spline_patches,
+                                                  make_spline_train_step,
+                                                  train_spline_arrays)
+
+    root = os.path.join(ROOT, "build", "splinenet_train")
+    shutil.rmtree(root, ignore_errors=True)
+    nu, nv = uniform_knot_bspline(20, 20, 3, 3, 30)
+    kinds, k1_loops, cases, chamfer = {}, 0, [], None
+    for kind in ("open", "closed"):
+        closed = kind == "closed"
+        t0 = time.time()
+        points, ctrl = make_spline_patches(
+            n_patches=SPLINE_TRAIN_PATCHES, n_points=SPLINE_TRAIN_POINTS,
+            grid=20, seed=0, closed=closed)
+        data_s = time.time() - t0
+        versus, graphs = spline_step_vs_cpu(points, ctrl, closed)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.time()
+        state, history = train_spline_arrays(
+            points, ctrl, closed=closed, steps=SPLINE_TRAIN_STEPS,
+            eval_every=SPLINE_TRAIN_STEPS, run_dir=os.path.join(root, kind),
+            seed=0, device=DEVICE)
+        torch.cuda.synchronize()
+        loop_s = time.time() - t0
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {key: (4 * (SPLINE_TRAIN_STEPS + 1) if key == "K1" else 0)
+                for key in counts}
+        if counts != want:
+            raise AssertionError(f"splinenet_train {kind}: launches {counts}, "
+                                 f"expected {want}")
+        rec = history[-1]
+        if (len(history) != 1 or rec["step"] != SPLINE_TRAIN_STEPS
+                or not all(map(math.isfinite, rec.values()))):
+            raise AssertionError(f"splinenet_train {kind}: history {history}")
+        k1_loops += counts["K1"]
+
+        step, _ = make_spline_train_step(state.model, state.optimizer, nu, nv,
+                                         closed=closed, loss_weight=0.9,
+                                         grid=20)
+        x = torch.from_numpy(points[:4]).to(DEVICE)
+        c = torch.from_numpy(ctrl[:4]).to(DEVICE)
+        reset_counts()
+        step(x, c)
+        torch.cuda.synchronize()
+        per_step = read_counts()
+        if per_step["K1"] != 4:
+            raise AssertionError(f"splinenet_train: one step's launches "
+                                 f"{per_step}")
+        step_ms = time_ms(lambda: step(x, c), reps=10, warmup=2)
+        trace = f"splinenet_train_{kind}_trace.json"
+        prof = _device_profile(lambda: step(x, c), trace)
+        prof.pop("stages")
+        k1_ms, kernels_ms = _kernel_share(os.path.join(ROOT, "build", trace),
+                                          "walk_")
+        kinds[kind] = {
+            "data_s": data_s, "loop_s": loop_s,
+            "loop_step_s_with_eval": loop_s / SPLINE_TRAIN_STEPS,
+            "loss_step1": versus["loss_step1"], "loss_step20": rec["loss"],
+            "history": history, "launches": counts,
+            "launches_per_step": per_step, "step_ms": step_ms,
+            "patches_per_s": 4e3 / step_ms, "step_profile": prof,
+            "k1_device_ms": k1_ms, "kernels_device_ms": kernels_ms,
+            "k1_share": k1_ms / kernels_ms if kernels_ms else None,
+            "peak_gib": peak_gib,
+            "peak_above_start_gib": peak_gib - start_bytes / 2 ** 30,
+            "card_vs_cpu_step1": versus}
+        if chamfer is None:
+            chamfer = check_chamfer_backward(points, ctrl)
+            cases = [check_topk(f"SplineNet train graph {g + 1}, "
+                                f"{tuple(xg.shape)} k=10", xg, xg, 10,
+                                max_swapped=None)
+                     for g, (xg, _) in enumerate(graphs)]
+        del state, step
+        torch.cuda.empty_cache()
+    emit({"phase": "splinenet_train", "ok": True,
+          "config": {"grid": 20, "k": 10, "points": SPLINE_TRAIN_POINTS,
+                     "batch": 4, "lr": 1e-3, "loss_weight": 0.9,
+                     "patches": SPLINE_TRAIN_PATCHES,
+                     "steps": SPLINE_TRAIN_STEPS},
+          "kinds": kinds, "chamfer": chamfer, "k1": cases,
+          "tol": {"metrics_rtol": SPLINE_TRAIN_RTOL,
+                  "param_rel_l2": SPLINE_TRAIN_PARAM_TOL,
+                  "grad_rel_l2": SPLINE_TRAIN_GRAD_TOL,
+                  "chamfer_atol": CHAMFER_ATOL}})
+    return k1_loops, cases
+
+
 def distinct_fraction(idx, order, run):
     """The distinct neighbour rows that a run of `run` consecutive positions
     of `order` reads, over the run * K rows it reads, averaged over the full
@@ -2696,6 +3077,9 @@ def main():
     fit_counts = phase_fit_pipeline(models, shapes, x)
     spline_counts, k1_spline = phase_fit_splines()
     timings["K1"].extend(k1_spline)
+    phase_checkpoints(models, x)
+    spline_train_k1, k1_spline_train = phase_splinenet_train()
+    timings["K1"].extend(k1_spline_train)
     gen = torch.Generator().manual_seed(8)
     big_inputs = ([torch.randn((BIG_POINTS, 12), generator=gen)
                    for _ in range(BIG_BATCH)],
@@ -2709,13 +3093,15 @@ def main():
     timings["K6b"] = k6b
     # each kernel's launches from the path of this smoke that runs it: K1,
     # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds (K1 also
-    # from the fit pipeline and the spline fits), K2 from the headline, K4
+    # from the fit pipeline, the spline fits and the SplineNet trainer's
+    # two loops), K2 from the headline, K4
     # from the eval's fused form, K5 from the "pallas" enrichment of the
     # large clouds
     counts.update({k: cli_counts[k] for k in ("K1", "K2b", "K3", "K6")})
     k1_by_path = {"predict_cli": cli_counts["K1"],
                   "fit_pipeline": fit_counts["K1"],
-                  "fit_splines": spline_counts["K1"]}
+                  "fit_splines": spline_counts["K1"],
+                  "splinenet_train": spline_train_k1}
     counts["K1"] = sum(k1_by_path.values())
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]

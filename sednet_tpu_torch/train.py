@@ -20,8 +20,10 @@ What differs from JAX, by design:
     from a `torch.Generator` seeded with `cfg.seed`, not `jax.random`;
   * checkpoints are flat `.npz` files (`weights.save_params_npz`, JAX's
     `save_params_npz` format, which JAX's `load_params` reads), the
-    optimizer's state a `torch.save` of its state dict; orbax directories
-    and `.pth` files raise (ROADMAP queue 1 item 10);
+    optimizer's state a `torch.save` of its state dict; no orbax is
+    written. The preload reads all three formats of `weights.load_params`
+    (`.npz`, the reference's `.pth`, orbax) and the optimizer resumes from
+    JAX's orbax `latest_opt` as well as from the port's `latest_opt.pt`;
   * one device: `mesh_shape` > 1 raises (item 9). On one device the loss
     is the global-batch loss that JAX's data-parallel step computes.
 
@@ -51,7 +53,9 @@ from sednet_tpu_torch.losses import (TripletConfig, edge_cls_loss,
                                      pull_push_embedding_loss, triplet_loss)
 from sednet_tpu_torch.models import SEDNet
 from sednet_tpu_torch.models.init import init_like_flax
-from sednet_tpu_torch.weights import load_params, save_params_npz
+from sednet_tpu_torch.weights import (flatten_tree, load_params,
+                                      params_from_flat, read_orbax_tree,
+                                      save_params_npz)
 
 logger = logging.getLogger("sednet_tpu_torch.train")
 
@@ -262,14 +266,66 @@ def load_params_tolerant(template: dict, path: str) -> dict:
     return merged
 
 
-def load_optimizer_state(optimizer: torch.optim.Optimizer, path: str):
-    """Resume the optimizer from `CheckpointManager`'s `latest_opt.pt`."""
-    if not path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path!r}: the port resumes from its own latest_opt.pt; orbax "
-            "optimizer states are ROADMAP queue 1 item 10")
-    optimizer.load_state_dict(torch.load(path, map_location="cpu",
-                                         weights_only=True))
+def load_optimizer_state(optimizer: torch.optim.Optimizer, path: str,
+                         model: torch.nn.Module | None = None):
+    """Resume the optimizer from the port's own `latest_opt.pt`, or from the
+    orbax directory that JAX's `CheckpointManager` writes as `latest_opt`:
+    the state of `sednet_tpu/train.py make_optimizer`, optax's
+    `inject_hyperparams(adamw | adam)`, behind `clip_by_global_norm` in a
+    chain when grad_clip > 0 (the chain's second entry) or alone. Its
+    moments `mu` / `nu` become each parameter's `exp_avg` / `exp_avg_sq`,
+    matched to `model`'s parameters by name (kernels transposed as in
+    `weights.py`), its `count` the `step`; b1, b2, eps and weight_decay come
+    from the saved hyperparameters, and so does the learning rate, which
+    the caller overrides with cfg.lr as JAX's `set_learning_rate` does.
+    An orbax state needs `model`."""
+    if path.endswith(".pt"):
+        optimizer.load_state_dict(torch.load(path, map_location="cpu",
+                                             weights_only=True))
+        return optimizer
+    if model is None:
+        raise ValueError(f"{path!r}: an orbax optimizer state is matched to "
+                         "the parameters by name; pass the model")
+    tree = read_orbax_tree(path)
+    inject = tree if "hyperparams" in tree else tree.get("1", {})
+    if "hyperparams" not in inject:
+        raise ValueError(f"{path!r}: not the optax state of make_optimizer "
+                         f"(top-level keys {sorted(tree)})")
+    hyper = {k: float(v) for k, v in inject["hyperparams"].items()}
+    adam = inject["inner_state"]["0"]
+    if hyper.get("eps_root", 0.0) != 0.0:
+        raise ValueError(f"{path!r}: eps_root {hyper['eps_root']} has no "
+                         "torch Adam counterpart")
+    if ("weight_decay" in hyper) != isinstance(optimizer,
+                                               torch.optim.AdamW):
+        raise ValueError(f"{path!r}: saved hyperparameters {sorted(hyper)} "
+                         f"do not fit {type(optimizer).__name__}")
+    mu = params_from_flat(flatten_tree(adam["mu"]), "")
+    nu = params_from_flat(flatten_tree(adam["nu"]), "")
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    differ = set(mu) ^ set(name_of.values())
+    if differ:
+        raise KeyError(f"{path!r}: the saved moments and the model's "
+                       f"parameters differ in {sorted(differ)}")
+    for name, p in model.named_parameters():
+        if mu[name].shape != p.shape:
+            raise ValueError(f"{path!r}: moment of {name} has shape "
+                             f"{tuple(mu[name].shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+    step = torch.tensor(float(adam["count"]), dtype=torch.float32)
+    sd = optimizer.state_dict()
+    state = {}
+    for group, saved in zip(optimizer.param_groups, sd["param_groups"]):
+        for p, index in zip(group["params"], saved["params"]):
+            name = name_of[id(p)]
+            state[index] = {"step": step.clone(), "exp_avg": mu[name],
+                            "exp_avg_sq": nu[name]}
+        saved.update(lr=hyper["learning_rate"], eps=hyper["eps"],
+                     betas=(hyper["b1"], hyper["b2"]))
+        if "weight_decay" in hyper:
+            saved["weight_decay"] = hyper["weight_decay"]
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": sd["param_groups"]})
     return optimizer
 
 
@@ -410,7 +466,7 @@ def init_training(cfg: Config, device):
     if cfg.preload_model and cfg.pretrain_opti_path:
         # optimizer resume with the LR override (train_sed_net.py:170-176)
         logger.info("preloading optimizer from %s", cfg.pretrain_opti_path)
-        load_optimizer_state(optimizer, cfg.pretrain_opti_path)
+        load_optimizer_state(optimizer, cfg.pretrain_opti_path, model)
         set_learning_rate(optimizer, cfg.lr)
     return model, optimizer, generator
 

@@ -17,8 +17,17 @@ BatchNorm's running statistics (`a/b/mean`, `a/b/var` -> the buffers
 `a.b.mean`, `a.b.var`; SplineNet's "batch_stats/" part).
 `flat_from_params` and `save_params_npz` are the way back: the trainer's
 checkpoints are flat `.npz` files that JAX's `load_params` reads.
+
+`load_params` also reads the two other formats of `sednet_tpu/train.py:265
+load_params`: the reference's `.pth` files (`utils/torch_import.py`) and
+orbax directories, which every shipped config names. An orbax directory is
+read without JAX or orbax (`read_orbax_tree`: its JSON metadata and
+tensorstore); tensorstore is imported only then, and its absence raises.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -27,6 +36,7 @@ from sednet_tpu_torch.config import Config
 from sednet_tpu_torch.device import resolve_device
 from sednet_tpu_torch.models.sednet import SEDNet
 from sednet_tpu_torch.models.splinenet import SplineNet
+from sednet_tpu_torch.utils.torch_import import load_torch_checkpoint
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "mean", "var": "var"}
@@ -44,7 +54,7 @@ def params_from_flat(flat, prefix: str = "inst") -> dict:
         *path, leaf = key[len(head):].split("/")
         if leaf not in _LEAF:
             raise KeyError(f"unmapped checkpoint leaf {key!r}")
-        arr = np.asarray(flat[key], np.float32)
+        arr = np.array(flat[key], np.float32)   # a writable copy
         if leaf == "kernel":
             arr = arr.T
         sd[".".join(path + [_LEAF[leaf]])] = torch.from_numpy(
@@ -93,22 +103,73 @@ def load_npz(path: str, which: str = "inst", cfg: Config | None = None,
     return model.to(dev).eval()
 
 
+def read_orbax_tree(path: str) -> dict:
+    """An orbax checkpoint directory (`ocp.PyTreeCheckpointer().save`) as a
+    nested dict of numpy arrays, read without JAX or orbax: `_METADATA`
+    (JSON) lists each leaf's key path, and tensorstore reads the leaf from
+    the directory's OCDBT store of zarr (v2) arrays, the layout orbax
+    writes by default. Sequence keys (a tuple's positions, as in an optax
+    state) become the strings "0", "1", ...; empty nodes (an optax
+    EmptyState, an empty dict) become empty dicts. Raises ImportError when
+    tensorstore is absent, ValueError on another layout."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(f"{path!r}: reading an orbax checkpoint directory "
+                          "needs the tensorstore package") from e
+    root = os.path.abspath(path)
+    with open(os.path.join(root, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise ValueError(f"{path!r}: an orbax layout without OCDBT or with "
+                         "zarr3 is not read (use_ocdbt "
+                         f"{meta.get('use_ocdbt')}, use_zarr3 "
+                         f"{meta.get('use_zarr3')})")
+    tree: dict = {}
+    for key, leaf in meta["tree_metadata"].items():
+        keys = [k["key"] for k in leaf["key_metadata"]]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if leaf["value_metadata"].get("skip_deserialize"):
+            node.setdefault(keys[-1], {})
+            continue
+        store = ts.open({"driver": "zarr", "kvstore": {
+            "driver": "ocdbt", "base": "file://" + root,
+            "path": ".".join(keys)}}).result()
+        node[keys[-1]] = np.asarray(store.read().result())
+    return tree
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested dict as flat "a/b/c" arrays (the keys of
+    `sednet_tpu/train.py:248 save_params_npz`)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    flat = {}
+    for k, v in tree.items():
+        flat.update(flatten_tree(v, f"{prefix}/{k}" if prefix else k))
+    return flat
+
+
 def load_params(path: str) -> dict:
-    """One model's parameters from a flat `.npz`, with or without the
-    "params/" prefix, as a torch state dict: what `sednet_tpu/train.py:265
-    load_params` reads from such a file, less `run_prediction`'s unwrap of
-    "params". Orbax directories and the reference's `.pth` files are not
-    read yet (ROADMAP queue 1 item 10)."""
-    if not path.endswith(".npz"):
-        kind = ("reference .pth" if path.endswith((".pth", ".pt"))
-                else "orbax directory")
-        raise NotImplementedError(
-            f"{path!r}: the port reads flat .npz checkpoints only; the "
-            f"{kind} import is ROADMAP queue 1 item 10")
-    with np.load(path) as flat:
-        prefix = "params" if any(k.startswith("params/")
-                                 for k in flat.files) else ""
-        return params_from_flat(flat, prefix)
+    """One model's parameters as a torch state dict, from any of the three
+    formats of `sednet_tpu/train.py:265 load_params`: a reference `.pth` /
+    `.pt` (`utils.torch_import`), a flat `.npz`, or an orbax directory
+    (`read_orbax_tree`). A tree under a lone "params" key is unwrapped, as
+    `run_prediction` and `load_params_tolerant` unwrap it
+    (`sednet_tpu/train.py:292-293`)."""
+    if path.endswith((".pth", ".pt")):
+        return load_torch_checkpoint(path)
+    if path.endswith(".npz"):
+        with np.load(path) as flat:
+            prefix = "params" if any(k.startswith("params/")
+                                     for k in flat.files) else ""
+            return params_from_flat(flat, prefix)
+    tree = read_orbax_tree(path)
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return params_from_flat(flatten_tree(tree), "")
 
 
 def load_checkpoint(path: str, cfg: Config | None = None,
@@ -134,3 +195,18 @@ def splinenet_from_variables(flat, grid_size: int = 20, k: int = 10,
     sd.update(params_from_flat(flat, "batch_stats"))
     model.load_state_dict(sd, strict=True)
     return model.to(dev).eval()
+
+
+def flat_from_splinenet(model: SplineNet) -> dict:
+    """The inverse of `splinenet_from_variables`: the model's variables as
+    the flat arrays of a flax variable dict, "params/..." (kernels
+    transposed, BatchNorm weights as `scale`) and
+    "batch_stats/.../mean|var"."""
+    sd = model.state_dict()
+    stats = {k for k in sd if k.endswith((".mean", ".var"))}
+    flat = {"params/" + k: v for k, v in flat_from_params(
+        {k: v for k, v in sd.items() if k not in stats}).items()}
+    for k in stats:
+        flat["batch_stats/" + k.replace(".", "/")] = \
+            sd[k].detach().cpu().numpy().astype(np.float32)
+    return flat

@@ -208,10 +208,29 @@ def test_load_checkpoint_reads_single_model_npz(h5_root):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# The reference's .pth / .pt files and orbax directories, once refused,
+# now load: the inst model written in each format gives the .npz route's
+# model bit for bit; a path that does not exist raises.
 @pytest.mark.parametrize("path", ["w.pth", "w.pt", "ckpts/best_inst"])
-def test_load_checkpoint_names_what_is_not_ported(path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        load_checkpoint(path, device="cpu")
+def test_load_checkpoint_names_what_is_not_ported(path, tmp_path):
+    import orbax.checkpoint as ocp
+    from sednet_tpu.utils.torch_import import flax_params_to_torch_state_dict
+
+    with pytest.raises(FileNotFoundError):
+        load_checkpoint(str(tmp_path / path), device="cpu")
+    params = load_params(CKPT)["inst"]
+    target = str(tmp_path / path)
+    if path.startswith("ckpts"):
+        ocp.PyTreeCheckpointer().save(target, {"params": params})
+    else:
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                    flax_params_to_torch_state_dict(params).items()}, target)
+    got = load_checkpoint(target, device="cpu")
+    want = load_npz(CKPT, "inst", device="cpu")
+    for (k, a), (k2, b) in zip(got.state_dict().items(),
+                               want.state_dict().items()):
+        assert k == k2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # --- run_prediction ----------------------------------------------------------

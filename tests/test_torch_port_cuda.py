@@ -1115,3 +1115,71 @@ def test_fit_ground_truth_on_card_matches_jax_reference(cuda):
     rec = chip_smoke.check_fit_ground_truth(
         Evaluation(FittingModule(device=cuda)), shapes)
     assert rec["ok"], rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("closed", [False, True])
+def test_spline_train_step_on_card_matches_cpu(cuda, monkeypatch, closed):
+    """One SplineNet train step at full width (grid 20, 700 points, B 4),
+    card against CPU, the CPU replaying the card's K1 graphs: K1 four
+    launches a forward, the loss and metrics at rtol 1e-4, each gradient
+    within 5e-3 relative L2 but those of the biases that feed a train-mode
+    BatchNorm (0 in exact arithmetic); chamfer's backward within 1e-6."""
+    from sednet_tpu_torch.fit.bspline import uniform_knot_bspline
+    from sednet_tpu_torch.models import splinenet as sn
+    from sednet_tpu_torch.models.init import init_like_flax
+    from sednet_tpu_torch.ops.chamfer import chamfer_index
+    from sednet_tpu_torch.splinenet_train import (make_spline_patches,
+                                                  make_spline_train_step)
+
+    graphs, replay = [], []
+    real = sn.knn_indices
+
+    def record_or_replay(x, k):
+        if replay:
+            return replay.pop(0).to(x.device)
+        graphs.append(real(x, k))
+        return graphs[-1]
+
+    monkeypatch.setattr(sn, "knn_indices", record_or_replay)
+    points, ctrl = make_spline_patches(n_patches=4, n_points=700, grid=20,
+                                       closed=closed)
+    nu, nv = uniform_knot_bspline(20, 20, 3, 3, 30)
+    net = init_like_flax(sn.SplineNet(), torch.Generator().manual_seed(6))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = copy.deepcopy(net).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        step, _ = make_spline_train_step(model, opt, nu, nv, closed=closed,
+                                         loss_weight=0.9, grid=20)
+        before = flash_topk.launches
+        m = step(torch.from_numpy(points).to(dev),
+                 torch.from_numpy(ctrl).to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert flash_topk.launches == before + 4
+            replay[:] = graphs
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {n: p.grad.detach().cpu().double()
+                      for n, p in model.named_parameters()}))
+    assert not replay
+    (cm, cg), (pm, pg) = runs
+    for k in pm:
+        assert abs(cm[k] - pm[k]) <= 1e-4 * abs(pm[k]), k
+    for n in pg:
+        if n not in ("bn5.bias", "conv6.bias", "conv7.bias"):
+            err = float((cg[n] - pg[n]).norm() / pg[n].norm())
+            assert err <= 5e-3, (n, err)
+
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(4, 900, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randn(4, 700, 3).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        tx = x.to(dev).requires_grad_()
+        ty = y.to(dev).requires_grad_()
+        d1, d2 = chamfer_index(tx, ty)
+        (d1.sum() + 2.0 * d2.sum()).backward()
+        grads.append((tx.grad.cpu(), ty.grad.cpu()))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-6

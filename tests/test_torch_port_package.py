@@ -31,12 +31,19 @@ def test_import_loads_no_jax():
                  "sednet_tpu_torch.losses.type_loss",
                  "sednet_tpu_torch.fit.evaluation",
                  "sednet_tpu_torch.fit.arap",
-                 "sednet_tpu_torch.models.splinenet"):
+                 "sednet_tpu_torch.models.splinenet",
+                 "sednet_tpu_torch.weights",
+                 "sednet_tpu_torch.utils.torch_import",
+                 "sednet_tpu_torch.utils.mesh",
+                 "sednet_tpu_torch.losses.spline",
+                 "sednet_tpu_torch.ops.chamfer",
+                 "sednet_tpu_torch.splinenet_train"):
         assert name in MODULES
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'flax', 'sednet_tpu')]\n"
+              "('jax', 'jaxlib', 'flax', 'sednet_tpu', 'orbax', "
+              "'tensorstore', 'h5py')]\n"
               "assert not bad, bad\n"
               "import torch\n"
               "assert not torch.backends.cuda.matmul.allow_tf32\n"

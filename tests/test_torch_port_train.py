@@ -235,11 +235,30 @@ def test_build_model_refuses_what_is_not_ported(field, value):
         ttrain.build_model(Config(**{field: value}))
 
 
+# An orbax directory and a reference .pth, once refused, now give the
+# leaves of JAX's load_params; a path that does not exist raises.
 @pytest.mark.parametrize("path", ["trains/x/ckpts/best_inst",
                                   "weights/sednet.pth"])
-def test_load_params_names_what_is_not_ported(path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.load_params(path)
+def test_load_params_names_what_is_not_ported(path, tmp_path):
+    import orbax.checkpoint as ocp
+    from sednet_tpu.utils.torch_import import flax_params_to_torch_state_dict
+
+    target = str(tmp_path / path)
+    with pytest.raises(FileNotFoundError):
+        ttrain.load_params(target)
+    params = jtrain.load_params(os.path.join(ROOT, "checkpoints",
+                                             "bench_10k.npz"))["type"]
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    if target.endswith(".pth"):
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                    flax_params_to_torch_state_dict(params).items()}, target)
+    else:
+        ocp.PyTreeCheckpointer().save(target, params)
+    want = params_from_flat(flatten(jtrain.load_params(target)), "")
+    got = ttrain.load_params(target)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_train_needs_the_card_or_cpu_and_one_device(monkeypatch, tmp_path):
