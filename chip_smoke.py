@@ -122,7 +122,24 @@ is not 0):
              version and index_add_), the card's step against the CPU's on
              one cloud with the same draws and graphs, the checkpoint
              re-read giving the same forward; ms a step, shapes/s, peak
-             memory.
+             memory;
+  serve      both models exported (`export.export_serving_bundle`) at
+             8 x 10000 x 6 under bench.py's config 2 into
+             build/serve_smoke/bundle, served by `python -m
+             sednet_tpu_torch.serve <bundle> --cluster` in a process of its
+             own, four requests (8 clouds as JSON, 3 as npz with one of
+             7000 points, /health, a malformed body): status codes, types
+             and edges against `predict.forward`'s argmax, instance labels
+             against the port's own clustering of the bundle's embedding
+             with the server's generators, K1/K2/K3/K6 launched in the
+             server; export s, start-up s, bundle MB, each request's ms,
+             the busy share of one clustered request;
+  parsenet_e2e  the end-to-end trainer (`parsenet_e2e.e2e_train_batch`)
+             under the production config from the bench inst model, 3
+             steps on 4 synthetic 10000-point clouds: finite losses, a fit
+             term above 0 with matched segments, each step's launches (K1,
+             K2, K3, K6, K6b), step 1 against the CPU on the card's graphs;
+             step ms, phase A / B / C ms, peak memory.
 
 The line before the last is the `kernels` summary, the last line the
 device record. Without a CUDA device, or outside a checkout of the repo,
@@ -3017,6 +3034,416 @@ def phase_train(models, card):
     return counts, k6b
 
 
+SERVE_SHORT = 7000        # the short cloud of the npz request
+SERVE_NEAR_TIE = 1e-5     # rows whose top two logits lie closer are exempt
+SERVE_READY_S = 300       # the server's start-up, at most
+SERVE_KERNELS = ("K1", "K2", "K3", "K6")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(method, url, body=None, content_type="application/json"):
+    """One request: (status, parsed JSON, ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers={"Content-Type": content_type})
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, blob = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, blob = e.code, e.read()
+    return code, json.loads(blob), (time.time() - t0) * 1e3
+
+
+def _start_server(bundle, port, log_path):
+    """`python -m sednet_tpu_torch.serve <bundle> --cluster --port <port>`
+    in a process of its own (stdout and stderr into log_path); returns
+    (process, seconds until it printed its "serving" line)."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    log = open(log_path, "w")
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "sednet_tpu_torch.serve", bundle,
+           "--cluster", "--port", str(port)]
+    if DEVICE != "cuda":   # a rehearsal on the CPU
+        cmd += ["--device", DEVICE]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    while time.time() - t0 < SERVE_READY_S:
+        with open(log_path) as f:
+            if '"serving"' in f.read():
+                return proc, time.time() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    proc.kill()
+    proc.wait()
+    with open(log_path) as f:
+        raise AssertionError(f"serve: the server did not start:\n{f.read()}")
+
+
+def _argmax_bad_rows(got, logits):
+    """Rows of got (n,) that differ from the argmax of logits (n, C)
+    outside near-ties (top two within SERVE_NEAR_TIE), and the tied rows."""
+    import numpy as np
+
+    top2 = np.sort(logits, -1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > SERVE_NEAR_TIE
+    bad = (np.asarray(got) != logits.argmax(-1)) & sure
+    return int(bad.sum()), int((~sure).sum())
+
+
+def phase_serve(models, x_np):
+    """The serving path: both models of checkpoints/bench_10k.npz exported
+    (`export.export_serving_bundle`, their state dicts) at the eval's
+    shape, 8 x 10000 x 6, under bench.py's config 2 with its clustering
+    knobs (`predict_cfg`: k 64, embed 128, HPNet enrichment, 5000
+    samples), on the card, into build/serve_bundle/; then `python -m
+    sednet_tpu_torch.serve <bundle> --cluster` in a process of its own,
+    which builds no model, and four requests to it: the 8 eval clouds as
+    JSON, 3 of them as npz (one cut to SERVE_SHORT points, through the
+    npz's "lengths"), GET /health, and a malformed body. Held to: 200 for
+    each but the malformed (400); types and edges equal to the argmax of
+    `predict.forward` on the same padded input outside near-ties;
+    instance labels equal to the port's own enrichment and
+    `guard_mean_shift` on the bundle's embedding (loaded in this process)
+    with the server's generators (`serve.request_generators` from seed 0,
+    one draw a clustered request); K1, K2, K3 and K6 launched inside the
+    server (the counts it logs on /health). Reported: export s, the
+    server's start-up s, bundle MB, each request's ms, and the device busy
+    share of one clustered 8-cloud request in this process."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+    from sednet_tpu_torch import export, serve
+    from sednet_tpu_torch.cluster.mean_shift import guard_mean_shift
+    from sednet_tpu_torch.cluster.spectral import hpnet_process
+    from sednet_tpu_torch.predict import STAGES as PREDICT_STAGES
+    from sednet_tpu_torch.predict import forward, spectral_embed
+
+    root = os.path.join(ROOT, "build", "serve_smoke")
+    bundle = os.path.join(root, "bundle")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = predict_cfg(batch_size=BATCH)
+    t0 = time.time()
+    export.export_serving_bundle(cfg, models["type"].state_dict(),
+                                 models["inst"].state_dict(), bundle,
+                                 device=DEVICE)
+    torch.cuda.synchronize()
+    export_s = time.time() - t0
+    bundle_mb = sum(os.path.getsize(os.path.join(bundle, f))
+                    for f in os.listdir(bundle)) / 2 ** 20
+
+    rng = np.random.RandomState(SERVE_SHORT)
+    keep = np.sort(rng.permutation(N_POINTS)[:SERVE_SHORT])
+    three = [x_np[0], x_np[1][keep], x_np[2]]
+    buf = io.BytesIO()
+    tail = np.zeros((N_POINTS - SERVE_SHORT, 6), np.float32)  # cut off
+    np.savez(buf, points=np.stack([x_np[0], np.concatenate([three[1], tail]),
+                                   x_np[2]]),
+             lengths=np.array([N_POINTS, SERVE_SHORT, N_POINTS]))
+    requests = [
+        ("predict_json_8", "POST", "/predict",
+         json.dumps({"points": x_np.tolist()}).encode(), "application/json"),
+        ("predict_npz_3", "POST", "/predict", buf.getvalue(),
+         "application/x-npz"),
+        ("health", "GET", "/health", None, "application/json"),
+        ("malformed", "POST", "/predict", b'{"points": [[1, 2', 
+         "application/json")]
+    port = _free_port()
+    log_path = os.path.join(root, "server.log")
+    proc, ready_s = _start_server(bundle, port, log_path)
+    replies = {}
+    try:
+        for name, method, path, body, ctype in requests:
+            replies[name] = _http(method, f"http://127.0.0.1:{port}{path}",
+                                  body, ctype)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    codes = {name: r[0] for name, r in replies.items()}
+    want_codes = {"predict_json_8": 200, "predict_npz_3": 200, "health": 200,
+                  "malformed": 400}
+    with open(log_path) as f:
+        log = f.read()
+    if codes != want_codes:
+        raise AssertionError(f"serve: status codes {codes}\n{log[-4000:]}")
+    health = [json.loads(ln) for ln in log.splitlines()
+              if ln.startswith('{"health"')]
+    server_launches = health[-1]["launches"] if health else {}
+    if any(server_launches.get(k, 0) <= 0 for k in SERVE_KERNELS):
+        raise AssertionError(f"serve: the server's launches {server_launches}")
+
+    # the same requests in this process: the bundle's embedding, the port's
+    # own clustering of it, the forward's types and edges
+    srv = serve.BundleServer(bundle, device=DEVICE)
+    gen = torch.Generator().manual_seed(0)   # the server's seed
+    checks = []
+    for name, shapes in (("predict_json_8", list(x_np)),
+                         ("predict_npz_3", three)):
+        got = replies[name][1]["results"]
+        if len(got) != len(shapes):
+            raise AssertionError(f"serve: {name} answered {len(got)} shapes")
+        x_pad, lengths = srv._pad(shapes)
+        xt = torch.from_numpy(x_pad).to(DEVICE)
+        _, type_lp, edge_logits = forward(models["type"], xt)
+        with torch.no_grad():
+            emb = srv.fns["inst_model"](xt)["embedding"]
+        gens = serve.request_generators(gen, len(shapes))
+        for i, n in enumerate(lengths):
+            bad_t, tie_t = _argmax_bad_rows(got[i]["types"],
+                                            type_lp[i, :n].cpu().numpy())
+            bad_e, tie_e = _argmax_bad_rows(got[i]["edges"],
+                                            edge_logits[i, :n].cpu().numpy())
+            e = emb[i, :n]
+            xyz, nrm = xt[i, :n, :3], xt[i, :n, 3:6]
+            v, ent = spectral_embed(xyz, nrm, cfg, generator=gens[i])
+            e = hpnet_process(e, xyz, nrm, normal_smooth_w=cfg.normal_smooth_w,
+                              cached_eigvecs=v, cached_eig_entropy=ent)
+            e = e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12)
+            own = guard_mean_shift(
+                e, num_samples=min(cfg.ms_num_samples, n),
+                quantile=cfg.ms_quantile, iterations=cfg.ms_iterations,
+                max_clusters=cfg.ms_max_clusters - 1,
+                retry_factor=cfg.ms_retry_factor, tol=cfg.ms_tol,
+                generator=gens[i])
+            checks.append({
+                "request": name, "shape": i, "points": n,
+                "type_bad_rows": bad_t, "type_near_ties": tie_t,
+                "edge_bad_rows": bad_e, "edge_near_ties": tie_e,
+                "instances_equal": got[i]["instances"] == own.labels.tolist(),
+                "num_instances": got[i]["num_instances"],
+                "own_num_instances": own.num_clusters})
+    bad = [c for c in checks if c["type_bad_rows"] or c["edge_bad_rows"]
+           or not c["instances_equal"]]
+    lengths_ok = [len(r["types"]) for r in replies["predict_npz_3"][1][
+        "results"]] == [N_POINTS, SERVE_SHORT, N_POINTS]
+
+    csrv = serve.BundleServer(bundle, cluster=True, device=DEVICE)
+    csrv.predict(list(x_np))   # warm
+
+    def one_request():
+        with record_function("serve/predict"):
+            csrv.predict(list(x_np))
+
+    # the request's range and the predict stages inside spectral_embed are
+    # ranges, not kernels
+    prof = _device_profile(one_request, "serve_trace.json",
+                           stages=("serve/predict",) + PREDICT_STAGES)
+    rec = {"phase": "serve", "ok": not bad and lengths_ok,
+           "bundle": os.path.relpath(bundle, ROOT),
+           "bundle_shape": [BATCH, N_POINTS, 6], "export_s": export_s,
+           "server_ready_s": ready_s, "bundle_mb": bundle_mb,
+           "request_ms": {name: r[2] for name, r in replies.items()},
+           "status": codes, "server_launches": server_launches,
+           "launches_read_from": "the server's /health log line",
+           "malformed_error": replies["malformed"][1].get("error"),
+           "checks": checks, "npz_lengths_ok": lengths_ok,
+           "clustered_request_profile": {
+               k: prof[k] for k in ("wall_s", "device_kernel_s",
+                                    "device_busy_share", "top", "stages")},
+           "busy_share_of": "one clustered 8-cloud BundleServer.predict "
+                            "in this process, under torch.profiler"}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve: {bad}, npz lengths {lengths_ok}")
+    del srv, csrv
+    torch.cuda.empty_cache()
+    return server_launches
+
+
+E2E_SEED = 12             # the e2e clouds' stream (not EVAL_STREAM_SEED)
+E2E_SHAPES = 4
+E2E_STEPS = 3
+E2E_LOSS_RTOL = 1e-4      # step 1's loss, card against CPU, same inputs
+E2E_GRAD_RTOL = 1e-3      # per leaf, relative L2 (see e2e_card_vs_cpu)
+# one e2e step's launches: two forwards (phase A's and the step's), 5
+# mean-shift steps and 3 NMS column-maxes a shape in phase A (the
+# bandwidth's k of 1250 takes the dense path, not K1), one backward
+E2E_PER_STEP = {"K1": 6, "K2": 5 * E2E_SHAPES, "K2b": 0,
+                "K3": 3 * E2E_SHAPES, "K4": 0, "K5": 0, "K6": 6, "K6b": 3}
+
+
+def e2e_card_vs_cpu(model, cfg, params0, args):
+    """Step 1's loss and gradients recomputed from its starting parameters
+    and its inputs (the batch, phase B's arrays, the bandwidths, the
+    triplet draws) on the card, and on the CPU in float32 and in float64,
+    the CPU on the card's kNN graphs (`_Graphs`), so that the card differs
+    from the CPU by its arithmetic alone. The loss is held to the CPU's
+    float32 loss within E2E_LOSS_RTOL. Each gradient leaf (the edge head
+    feeds no term of this loss and has none) is held to the float64 step
+    within E2E_GRAD_RTOL, or within twice the CPU float32 step's own
+    distance from it where that is larger: some leaves are ill-conditioned
+    in float32 (`f64_errors`' rule)."""
+    import copy
+
+    import torch
+    from sednet_tpu_torch.parsenet_e2e import make_e2e_loss_fn
+
+    def run(dev, replay=None, dtype=torch.float32):
+        m = copy.deepcopy(model).to(dev)
+        m.load_state_dict(params0)
+        m.to(dtype)
+        m.zero_grad(set_to_none=True)
+        batch = {k: v.to(dev, dtype if v.is_floating_point() else v.dtype)
+                 for k, v in args[0].items()}
+        arrays, bws = tuple(a.to(dev) for a in args[1]), args[2].to(dev)
+        draws = [d.to(dev) for d in args[3]]
+        t0 = time.time()
+        with _Graphs(replay) as graphs:
+            total, metrics = make_e2e_loss_fn(m, cfg)(batch, arrays, bws,
+                                                      draws)
+            total.backward()
+        grads = {k: p.grad.detach().cpu().double()
+                 for k, p in m.named_parameters() if p.grad is not None}
+        return (float(total.detach()), grads,
+                [g.cpu() for g in graphs.graphs],
+                {k: float(v) for k, v in metrics.items()}, time.time() - t0)
+
+    card = run(DEVICE)
+    cpu = run("cpu", replay=card[2])
+    exact = run("cpu", replay=card[2], dtype=torch.float64)
+    if not card[1].keys() == cpu[1].keys() == exact[1].keys():
+        raise AssertionError("parsenet_e2e: gradient leaves differ")
+
+    def rel(a, b):
+        return {k: float((a[1][k] - b[1][k]).norm()
+                         / b[1][k].norm().clamp_min(1e-30)) for k in b[1]}
+
+    vs_cpu, card_f64, cpu_f64 = rel(card, cpu), rel(card, exact), rel(cpu,
+                                                                     exact)
+    allowed = {k: max(E2E_GRAD_RTOL, 2.0 * cpu_f64[k]) for k in card_f64}
+    over = {k: (card_f64[k], allowed[k]) for k in card_f64
+            if card_f64[k] > allowed[k]}
+    worst = sorted(card_f64, key=lambda k: card_f64[k] / allowed[k])[-4:]
+    rec = {"loss": card[0], "cpu_loss": cpu[0], "f64_loss": exact[0],
+           "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+           "metrics": card[3], "cpu_metrics": cpu[3],
+           "grad_leaves": len(vs_cpu),
+           "grad_rel_err_vs_cpu_max": max(vs_cpu.values()),
+           "grad_rel_err_vs_cpu_median": sorted(vs_cpu.values())[
+               len(vs_cpu) // 2],
+           "leaves_over_1e-3_vs_cpu": sorted(
+               k for k, v in vs_cpu.items() if v > E2E_GRAD_RTOL),
+           "worst_vs_f64": {k: {"card": card_f64[k], "cpu_f32": cpu_f64[k],
+                                "vs_cpu": vs_cpu[k]} for k in worst},
+           "cpu_f32_vs_f64_max": max(cpu_f64.values()),
+           "over_allowed": over, "cpu_step_s": cpu[4],
+           "cpu_f64_step_s": exact[4]}
+    rec["ok"] = rec["loss_rel_err"] <= E2E_LOSS_RTOL and not over
+    return rec
+
+
+def phase_parsenet_e2e(models, card):
+    """ParseNet's end-to-end trainer (`parsenet_e2e.e2e_train_batch`) under
+    the production config (`train_cfg`: 4 x 10000 points, k 64, embed 128,
+    AdamW at lr 1e-4 through `train.init_training`), the inst model of
+    checkpoints/bench_10k.npz preloaded, fitting_weight 1.0, for E2E_STEPS
+    steps on E2E_SHAPES synthetic clouds of 10000 points
+    (`headline_shapes` from E2E_SEED: normalised, PCA-aligned, 6 segments;
+    the repository has no ParseNet h5). Held to: every step's losses
+    finite, the fit term above 0 with at least one matched geometric
+    segment per shape in step 1, each step's launches (E2E_PER_STEP: K2,
+    K3, K6 and K6b among them), step 1 on the card against the CPU
+    (`e2e_card_vs_cpu`). Reported: step ms (median of the steps after the
+    first), phase A / B / C ms of each step, peak GiB."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+    from sednet_tpu_torch import parsenet_e2e as E
+    from sednet_tpu_torch import train as T
+    from sednet_tpu_torch.predict import headline_shapes
+    from sednet_tpu_torch.weights import save_params_npz
+
+    root = os.path.join(ROOT, "build", "e2e_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    preload = os.path.join(root, "preload_inst.npz")
+    save_params_npz(preload, models["inst"])
+    cfg = train_cfg(preload)
+    model, optimizer, gen = T.init_training(cfg, DEVICE)
+    shapes, _ = headline_shapes(E2E_SHAPES, N_POINTS, seed=E2E_SEED)
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in shapes])).to(DEVICE)
+             for k in ("points", "normals", "labels", "prim")}
+    step = E.make_e2e_train_step(model, optimizer, cfg, fitting_weight=1.0)
+    seen = []
+
+    def recording(*args):
+        seen.append(args)
+        return step(*args)
+
+    state = T.TrainState(model, optimizer, 0)
+    params0 = copy.deepcopy(model.state_dict())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(E2E_STEPS):
+        timings = {}
+        reset_counts()
+        t0 = time.time()
+        state, metrics = E.e2e_train_batch(model, state, batch, cfg,
+                                           recording, gen, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        a, b = (timings[E.STAGES[0]], timings[E.STAGES[1]])
+        steps.append({"ms": wall * 1e3, "phase_a_ms": a * 1e3,
+                      "phase_b_ms": b * 1e3,
+                      "phase_c_ms": (wall - a - b) * 1e3,
+                      "metrics": {k: float(v) for k, v in metrics.items()},
+                      "launches": read_counts()})
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    seg_types = seen[0][1][1].cpu().numpy()
+    matched = (seg_types > 0).sum(1).tolist()
+    finite = all(math.isfinite(v) for s in steps
+                 for v in s["metrics"].values())
+    fit_ok = all(s["metrics"]["fit"] > 0 for s in steps) and min(matched) >= 1
+    launches_ok = all(s["launches"] == E2E_PER_STEP for s in steps)
+    versus_cpu = e2e_card_vs_cpu(model, cfg, params0, seen[0])
+    # the recomputation is step 1's loss (K6b's atomics aside)
+    same_step = abs(versus_cpu["loss"] - steps[0]["metrics"]["loss"]) <= (
+        1e-5 * abs(steps[0]["metrics"]["loss"]))
+    rec = {"phase": "parsenet_e2e",
+           "ok": (finite and fit_ok and launches_ok and same_step
+                  and versus_cpu["ok"]), "card": card,
+           "config": "configs/config_SEDNet_normal.yml",
+           "batch": [E2E_SHAPES, N_POINTS], "k": cfg.knn,
+           "fitting_weight": 1.0, "steps": steps,
+           "step_ms_median_after_first": float(np.median(
+               [s["ms"] for s in steps[1:]])),
+           "matched_geometric_segments": matched, "peak_gib": peak_gib,
+           "launches_per_step_expected": E2E_PER_STEP,
+           "card_vs_cpu": versus_cpu,
+           "cut": "4 synthetic clouds and 3 steps: the repository has no "
+                  "ParseNet h5"}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"parsenet_e2e: finite {finite}, fit {fit_ok}, "
+                             f"launches {launches_ok}, step 1 recomputed "
+                             f"{same_step}, card against CPU {versus_cpu}")
+    del model, optimizer, state, seen
+    torch.cuda.empty_cache()
+    return {k: sum(s["launches"][k] for s in steps) for k in E2E_PER_STEP}
+
+
 KERNELS = {
     "K1": ("flash_topk", "sednet_tpu_torch/csrc/flash_topk.cu",
            "sednet_tpu/ops/flash_topk.py:259"),
@@ -3091,6 +3518,8 @@ def main():
     phase_predict_bigcloud(models, big_shapes, big_inputs)
     train_counts, k6b = phase_train(models, card)
     timings["K6b"] = k6b
+    serve_counts = phase_serve(models, x_np)
+    e2e_counts = phase_parsenet_e2e(models, card)
     # each kernel's launches from the path of this smoke that runs it: K1,
     # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds (K1 also
     # from the fit pipeline, the spline fits and the SplineNet trainer's
@@ -3101,7 +3530,9 @@ def main():
     k1_by_path = {"predict_cli": cli_counts["K1"],
                   "fit_pipeline": fit_counts["K1"],
                   "fit_splines": spline_counts["K1"],
-                  "splinenet_train": spline_train_k1}
+                  "splinenet_train": spline_train_k1,
+                  "serve": serve_counts["K1"],
+                  "parsenet_e2e": e2e_counts["K1"]}
     counts["K1"] = sum(k1_by_path.values())
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]

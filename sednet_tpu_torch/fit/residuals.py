@@ -21,8 +21,9 @@ from sednet_tpu_torch.ops.guard import guard_sqrt
 
 
 def as_tensor(v, like):
-    """A parameter (numpy, number or tensor) as float32 on like's device."""
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    """A parameter (numpy, number or tensor) in like's dtype (float32 on
+    the main path) on like's device."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
 def _reduce(distance, weights, sqrt, reduce):

@@ -8,7 +8,9 @@ metrics, both with the expansion of the TPU kernel's `_dist_tile`:
   * "sqdist":          |q|^2 + |p|^2 - 2 q.p
   * "points_normals":  (|q3|^2 + |p3|^2 - 2 q3.p3) * (1 + w (2 - 2 qn.pn))
 
-A CUDA tensor launches the kernel; a CPU tensor takes `topk_plain`.
+The kernel is the `torch.library` op `sednet::topk`, so that
+`torch.export` can trace through it: a CUDA tensor launches the kernel, a
+CPU tensor takes `topk_plain`, and the exported graph calls the op.
 
 The TPU wrapper's Morton `spatial_sort` is a speed device for that kernel's
 tile skip, not part of the result, and is not ported here.
@@ -162,22 +164,41 @@ def _launch(q, p, k, metric, w, largest):
     return dist, idx.long()
 
 
+# K1 as the custom op `sednet::topk`: the dispatcher sends a CUDA tensor to
+# the kernel and a CPU tensor to `topk_plain`; any other device has no
+# implementation and raises. No autograd: the graphs it gives are indices.
+@torch.library.custom_op("sednet::topk", mutates_args=(), device_types="cpu")
+def _topk_op(q: torch.Tensor, p: torch.Tensor, k: int, metric: str,
+             normal_metric_w: float, largest: bool
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    return topk_plain(q, p, k, metric=metric,
+                      normal_metric_w=normal_metric_w, largest=largest)
+
+
+_topk_op.register_kernel("cuda")(_launch)
+
+
+@_topk_op.register_fake
+def _(q, p, k, metric, normal_metric_w, largest):
+    shape = (*q.shape[:-1], k)
+    return (q.new_empty(shape, dtype=torch.float32),
+            q.new_empty(shape, dtype=torch.int64))
+
+
 def flash_topk(q, p, k: int, *, metric: str = "sqdist",
                normal_metric_w: float = 1.0, largest: bool = False,
                return_distances: bool = False):
-    """Exact top-k rows of p for every row of q (see the module docstring).
+    """Exact top-k rows of p for every row of q (see the module docstring),
+    through the op `sednet::topk` (`torch.ops.sednet.topk`).
 
     Returns int64 indices (..., M, k), and with return_distances also the
     float32 distances in the same order. On CUDA, q and p must be
     contiguous float32; k <= 128 and D <= 256."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
-    if q.device.type == "cpu":
-        dist, idx = topk_plain(q, p, k, metric=metric,
-                               normal_metric_w=normal_metric_w,
-                               largest=largest)
-    else:
-        dist, idx = _launch(q, p, k, metric, normal_metric_w, largest)
+    # the op has no gradient: its inputs go in detached, on either device
+    dist, idx = torch.ops.sednet.topk(q.detach(), p.detach(), k, metric,
+                                      float(normal_metric_w), bool(largest))
     return (idx, dist) if return_distances else idx
 
 

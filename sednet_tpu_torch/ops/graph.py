@@ -3,16 +3,21 @@
 Counterpart of `sednet_tpu/ops/graph.py:17-39,74-141`. The gather and its
 three reductions over the neighbours are kernel K6 (`gather_reduce`,
 `csrc/gather_reduce.cu`, the counterpart of the TPU probe kernel
-`scripts/probe_gather_pallas.py:_call`): a CUDA tensor launches it, a CPU
-tensor takes `gather_reduce_plain`. Its gradient is kernel K6b
-(`gather_reduce_backward`, `csrc/gather_reduce_bwd.cu`): on the card a
-backward through K6 launches it, on the CPU autograd differentiates the
-plain version. The JAX package has no kernel for that gradient: it
-differentiates XLA's gather. Both kernels walk the rows in a given order, a
-Morton curve of the points (`locality_order`), so that the rows a block
-handles share their neighbours.
+`scripts/probe_gather_pallas.py:_call`), the `torch.library` op
+`sednet::gather_reduce`: a CUDA tensor launches it, a CPU tensor takes
+`gather_reduce_plain`. Its gradient is kernel K6b
+(`gather_reduce_backward`, `csrc/gather_reduce_bwd.cu`), the op
+`sednet::gather_reduce_backward` that K6's autograd formula calls: on the
+card a backward through K6 launches it, on the CPU it takes
+`gather_reduce_backward_plain`. The JAX package has no kernel for that
+gradient: it differentiates XLA's gather. As ops, both trace under
+`torch.export` into calls in the exported graph. Both kernels walk the
+rows in a given order, a Morton curve of the points (`locality_order`), so
+that the rows a block handles share their neighbours.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,20 +31,6 @@ def _spread_bits(v):
     v = (v | (v << 8)) & 0x0300F00F
     v = (v | (v << 4)) & 0x030C30C3
     return (v | (v << 2)) & 0x09249249
-
-
-_MORTON = {}   # device -> (1024, 3) int32: x, y, z's spread bits in place
-
-
-def _morton_table(device):
-    """The 10-bit Morton codes of one axis value, shifted into place for
-    x, y and z, so that a key is one gather and one sum (the three fields
-    share no bit; a key has 30 bits)."""
-    if device not in _MORTON:
-        v = _spread_bits(torch.arange(1024, dtype=torch.int64))
-        _MORTON[device] = torch.stack([v, v << 1, v << 2], -1).to(
-            device=device, dtype=torch.int32)
-    return _MORTON[device]
 
 
 def locality_order(xyz):
@@ -62,8 +53,10 @@ def locality_order(xyz):
     lo, hi = torch.aminmax(c, dim=1, keepdim=True)
     qv = torch.clamp((c - lo) / torch.clamp_min(hi - lo, 1e-12) * 1023.0,
                      0.0, 1023.0).to(torch.int64)
-    table = _morton_table(xyz.device)
-    key = table[qv, torch.arange(3, device=xyz.device)].sum(
+    # x, y and z's spread bits shifted into place: the three fields share
+    # no bit, so the sum is the 30-bit interleave. Computed in the call, not
+    # cached, so that an export's fake tensors never enter a cache.
+    key = (_spread_bits(qv) << torch.arange(3, device=xyz.device)).sum(
         -1, dtype=torch.int32)
     return torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
 
@@ -133,37 +126,62 @@ def _gather_reduce_launch(a, idx, order):
         s.data_ptr(), sq.data_ptr(), mx.data_ptr(), _build.stream_of(a))
     _build.check(err, "gather_reduce")
     gather_reduce.launches += 1
-    if cp != c:
-        s, sq, mx = s[..., :c], sq[..., :c], mx[..., :c]
-    return s, sq, mx
+    return _unpad(s, c), _unpad(sq, c), _unpad(mx, c)
 
 
-class _GatherReduce(torch.autograd.Function):
-    """K6's launch as an autograd node whose backward is kernel K6b. It
-    keeps the table, the graph, the order and the forward's max, which K6b
-    compares each gathered value with to find the max's ties."""
+def _unpad(t, c):
+    """The first c columns of a kernel output, contiguous, as the op's fake
+    implementation states them."""
+    return t if t.shape[-1] == c else t[..., :c].contiguous()
 
-    @staticmethod
-    def forward(ctx, a, idx, order):
-        s, sq, mx = _gather_reduce_launch(a, idx, order)
-        ctx.save_for_backward(a, idx, order, mx)
-        return s, sq, mx
 
-    @staticmethod
-    def backward(ctx, gs, gsq, gmx):
-        a, idx, order, mx = ctx.saved_tensors
-        return _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq,
-                                              gmx), None, None
+# K6 and K6b as the custom ops `sednet::gather_reduce` and
+# `sednet::gather_reduce_backward`: the dispatcher sends CUDA tensors to the
+# kernels and CPU tensors to the plain versions; any other device has no
+# implementation and raises. K6's autograd formula is K6b's op on either
+# device.
+@torch.library.custom_op("sednet::gather_reduce", mutates_args=(),
+                         device_types="cpu")
+def _gather_reduce_op(a: torch.Tensor, idx: torch.Tensor,
+                      order: Optional[torch.Tensor]
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return gather_reduce_plain(a, idx)
+
+
+_gather_reduce_op.register_kernel("cuda")(_gather_reduce_launch)
+
+
+@_gather_reduce_op.register_fake
+def _(a, idx, order):
+    return tuple(torch.empty_like(a, memory_format=torch.contiguous_format)
+                 for _ in range(3))
+
+
+def _gather_reduce_setup(ctx, inputs, output):
+    a, idx, order = inputs
+    ctx.save_for_backward(a, idx, order, output[2])
+
+
+def _gather_reduce_grad(ctx, gs, gsq, gmx):
+    a, idx, order, mx = ctx.saved_tensors
+    da = torch.ops.sednet.gather_reduce_backward(
+        a, idx, order, mx, gs.contiguous(), gsq.contiguous(),
+        gmx.contiguous())
+    return da, None, None
+
+
+torch.library.register_autograd("sednet::gather_reduce", _gather_reduce_grad,
+                                setup_context=_gather_reduce_setup)
 
 
 def gather_reduce(a, idx, order=None):
     """K6: the sum, sum of squares and max of a's rows over each row's
     neighbours, a (B, N, C) float32, idx (B, N, K) int64 (out-of-range
-    entries clamp within their shape). Returns three (B, N, C). On CUDA, a
-    must be contiguous, C <= 256 (padded to a multiple of 32) and K <= 128;
-    the sums run over k in ascending order. Where a requires grad on CUDA,
-    the backward launches K6b (`gather_reduce_backward`); on the CPU
-    autograd differentiates `gather_reduce_plain`.
+    entries clamp within their shape). Returns three (B, N, C). Through the
+    op `sednet::gather_reduce` (`torch.ops.sednet.gather_reduce`): on CUDA,
+    a must be contiguous, C <= 256 (padded to a multiple of 32) and K <=
+    128; the sums run over k in ascending order. The op's gradient is K6b
+    (`gather_reduce_backward`), on the card and on the CPU.
 
     order: None (the rows in their own order) or a (B, N) int32 tensor on
     a's device that must hold a permutation of 0 .. N-1 in each shape
@@ -173,11 +191,7 @@ def gather_reduce(a, idx, order=None):
     order and ignores it."""
     if order is not None:
         _check_order(order, a)
-    if a.device.type == "cpu":
-        return gather_reduce_plain(a, idx)
-    if torch.is_grad_enabled() and a.requires_grad:
-        return _GatherReduce.apply(a, idx, order)
-    return _gather_reduce_launch(a, idx, order)
+    return torch.ops.sednet.gather_reduce(a, idx, order)
 
 
 gather_reduce.launches = 0
@@ -233,22 +247,41 @@ def _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq, gmx):
         idx.shape[2], da.data_ptr(), _build.stream_of(a))
     _build.check(err, "gather_reduce_backward")
     gather_reduce_backward.launches += 1
-    return da if cp == c else da[..., :c]
+    return _unpad(da, c)
+
+
+@torch.library.custom_op("sednet::gather_reduce_backward", mutates_args=(),
+                         device_types="cpu")
+def _gather_reduce_backward_op(a: torch.Tensor, idx: torch.Tensor,
+                               order: Optional[torch.Tensor],
+                               mx: torch.Tensor, gs: torch.Tensor,
+                               gsq: torch.Tensor,
+                               gmx: torch.Tensor) -> torch.Tensor:
+    return gather_reduce_backward_plain(a, idx, mx, gs, gsq, gmx)
+
+
+_gather_reduce_backward_op.register_kernel("cuda")(
+    _gather_reduce_backward_launch)
+
+
+@_gather_reduce_backward_op.register_fake
+def _(a, idx, order, mx, gs, gsq, gmx):
+    return torch.empty_like(a, memory_format=torch.contiguous_format)
 
 
 def gather_reduce_backward(a, idx, mx, gs, gsq, gmx, order=None):
     """K6b: the gradient of `gather_reduce(a, idx)` with respect to a, given
     the forward's max mx and the cotangents gs, gsq, gmx (each (B, N, C));
-    see `gather_reduce_backward_plain` for the formula. A CUDA tensor
-    launches the kernel, whose atomic adds make the last bits vary from run
-    to run (`backward_error_bound` bounds its distance from the plain
-    version); a CPU tensor takes the plain version. order: as in
-    `gather_reduce`, the row order the kernel's blocks walk."""
-    if a.device.type == "cpu":
-        if order is not None:
-            _check_order(order, a)
-        return gather_reduce_backward_plain(a, idx, mx, gs, gsq, gmx)
-    return _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq, gmx)
+    see `gather_reduce_backward_plain` for the formula. Through the op
+    `sednet::gather_reduce_backward`: a CUDA tensor launches the kernel,
+    whose atomic adds make the last bits vary from run to run
+    (`backward_error_bound` bounds its distance from the plain version); a
+    CPU tensor takes the plain version. order: as in `gather_reduce`, the
+    row order the kernel's blocks walk."""
+    if order is not None:
+        _check_order(order, a)
+    return torch.ops.sednet.gather_reduce_backward(a, idx, order, mx, gs,
+                                                   gsq, gmx)
 
 
 gather_reduce_backward.launches = 0

@@ -15,7 +15,8 @@ which also covers the encoder's edge convolutions
 (`encoder/convN/conv/kernel` -> `encoder.convN.conv.weight`, no bias), and
 BatchNorm's running statistics (`a/b/mean`, `a/b/var` -> the buffers
 `a.b.mean`, `a.b.var`; SplineNet's "batch_stats/" part).
-`flat_from_params` and `save_params_npz` are the way back: the trainer's
+`parsenet_from_params` loads the same names into the legacy
+`ParseNetEmbedding`. `flat_from_params` and `save_params_npz` are the way back: the trainer's
 checkpoints are flat `.npz` files that JAX's `load_params` reads.
 
 `load_params` also reads the two other formats of `sednet_tpu/train.py:265
@@ -34,6 +35,7 @@ import torch
 
 from sednet_tpu_torch.config import Config
 from sednet_tpu_torch.device import resolve_device
+from sednet_tpu_torch.models.parsenet import ParseNetEmbedding
 from sednet_tpu_torch.models.sednet import SEDNet
 from sednet_tpu_torch.models.splinenet import SplineNet
 from sednet_tpu_torch.utils.torch_import import load_torch_checkpoint
@@ -179,6 +181,19 @@ def load_checkpoint(path: str, cfg: Config | None = None,
     dev = resolve_device(device)
     model = SEDNet.from_config(cfg or Config())
     model.load_state_dict(load_params(path), strict=True)
+    return model.to(dev).eval()
+
+
+def parsenet_from_params(flat, prefix: str = "", device=None,
+                         **model_kw) -> ParseNetEmbedding:
+    """A ParseNetEmbedding (built with model_kw) holding the JAX model's
+    parameters: flat has the "a/b/c" arrays of its flax parameter tree
+    under `prefix` (a dict or an opened `.npz`; "" for every array), as
+    `sednet_tpu/train.py:248 save_params_npz` flattens it. Strict: every
+    parameter of the model must be there, with its shape. In eval mode."""
+    dev = resolve_device(device)
+    model = ParseNetEmbedding(**model_kw)
+    model.load_state_dict(params_from_flat(flat, prefix), strict=True)
     return model.to(dev).eval()
 
 

@@ -1183,3 +1183,90 @@ def test_spline_train_step_on_card_matches_cpu(cuda, monkeypatch, closed):
         grads.append((tx.grad.cpu(), ty.grad.cpu()))
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-6
+
+
+# --- K1, K6 and K6b as torch.library ops ----------------------------------------
+# opcheck on the card runs the CUDA implementations: their outputs against
+# the fake implementations' shapes, dtypes and strides, the schema, the
+# autograd registration and AOT dispatch with dynamic shapes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,d", [("sqdist", 64), ("points_normals", 6),
+                                      ("sqdist", 20)])
+def test_custom_op_topk_on_card(cuda, metric, d):
+    rng = np.random.RandomState(41)
+    x = (np.stack([_points_normals(rng, 1500) for _ in range(2)])
+         if metric == "points_normals" else
+         rng.randn(2, 1500, d).astype(np.float32))
+    q = torch.from_numpy(x).to(cuda)
+    before = flash_topk.launches
+    dist, idx = torch.ops.sednet.topk(q, q, 32, metric, 1.0, False)
+    torch.cuda.synchronize()
+    assert flash_topk.launches == before + 1
+    cmp = compare_with_plain(q, q, 32, idx, dist, metric=metric)
+    assert cmp["bad_rows"] == 0 and cmp["max_abs_err"] <= cmp["tol"], cmp
+    torch.library.opcheck(torch.ops.sednet.topk.default,
+                          (q, q, 32, metric, 1.0, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 100])
+def test_custom_op_gather_reduce_on_card(cuda, c):
+    """K6 and, through the op's autograd formula, K6b on the card: the
+    forward against gather_reduce_plain (the same k order; 1e-6 of the
+    values' scale), the backward within backward_error_bound of
+    gather_reduce_backward_plain; each op launched once; opcheck on both
+    (C = 100 pads to 128 and slices back)."""
+    rng = np.random.RandomState(42)
+    a = torch.from_numpy(rng.randn(2, 2000, c).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, 2000, (2, 2000, 16))).to(cuda)
+    order = locality_order(a[..., :3].contiguous())
+    before = (gather_reduce.launches, gather_reduce_backward.launches)
+    x = a.clone().requires_grad_()
+    out = gather_reduce(x, idx, order)
+    cot = [torch.randn(a.shape, device=cuda) for _ in range(3)]
+    torch.autograd.backward(out, cot)
+    torch.cuda.synchronize()
+    assert (gather_reduce.launches, gather_reduce_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in zip(out, gather_reduce_plain(a, idx)):
+        assert got.is_contiguous()
+        assert float((got.detach() - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+    mx = out[2].detach()
+    want = gather_reduce_backward_plain(a, idx, mx, *cot)
+    bound = backward_error_bound(a, idx, mx, *cot)
+    assert bool(((x.grad - want).abs() <= bound).all())
+    torch.library.opcheck(torch.ops.sednet.gather_reduce.default,
+                          (a.clone().requires_grad_(), idx, order))
+    torch.library.opcheck(torch.ops.sednet.gather_reduce_backward.default,
+                          (a, idx, order, mx, *cot))
+
+
+@pytest.mark.cuda
+def test_export_on_card_launches_the_kernels(cuda, tmp_path):
+    """A bundle exported on the card: its forward equals the model's
+    (1e-6), launches K1 and K6 three times each, and a second process's
+    worth of loading (torch.export.load) runs it without the model."""
+    from sednet_tpu_torch import export
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.models.init import init_like_flax
+    from sednet_tpu_torch.train import build_model
+
+    cfg = Config(num_points=1000, batch_size=2)
+    model = init_like_flax(build_model(cfg),
+                           torch.Generator().manual_seed(3)).to(cuda).eval()
+    export.export_serving_bundle(cfg, model, model, str(tmp_path),
+                                 device=cuda)
+    _, fns = export.load_bundle(str(tmp_path), device=cuda)
+    rng = np.random.RandomState(43)
+    x = torch.from_numpy(np.stack([_points_normals(rng, 1000)
+                                   for _ in range(2)])).to(cuda)
+    before = (flash_topk.launches, gather_reduce.launches)
+    with torch.no_grad():
+        got = fns["inst_model"](x)
+        torch.cuda.synchronize()
+        after = (flash_topk.launches, gather_reduce.launches)
+        ref = model(x)
+    assert (after[0] - before[0], after[1] - before[1]) == (3, 3)
+    for name in ("embedding", "type_log_prob", "edge_logits"):
+        assert float((got[name] - getattr(ref, name)).abs().max()) <= 1e-6

@@ -37,7 +37,11 @@ def test_import_loads_no_jax():
                  "sednet_tpu_torch.utils.mesh",
                  "sednet_tpu_torch.losses.spline",
                  "sednet_tpu_torch.ops.chamfer",
-                 "sednet_tpu_torch.splinenet_train"):
+                 "sednet_tpu_torch.splinenet_train",
+                 "sednet_tpu_torch.export", "sednet_tpu_torch.serve",
+                 "sednet_tpu_torch.parsenet_e2e",
+                 "sednet_tpu_torch.utils.tracing",
+                 "sednet_tpu_torch.models.parsenet"):
         assert name in MODULES
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
@@ -88,3 +92,27 @@ def test_build_digest_covers_headers(tmp_path, monkeypatch):
 def test_cpu_tensors_never_reach_the_launcher():
     with pytest.raises(ValueError, match="CUDA tensor"):
         _build.require_cuda_f32("x", torch.zeros(3))
+
+
+def test_serving_and_e2e_entry_points_default_to_the_card(monkeypatch,
+                                                          tmp_path):
+    """export, load_bundle, BundleServer and build_match_arrays run on the
+    card unless given device="cpu": without one they raise."""
+    import numpy as np
+
+    from sednet_tpu_torch import export, serve
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.parsenet_e2e import build_match_arrays
+    from sednet_tpu_torch.train import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(Config(knn=4, embed=8))
+    for call in (lambda: export.export_forward(model, 1, 16, 6),
+                 lambda: export.load_bundle(str(tmp_path)),
+                 lambda: serve.BundleServer(str(tmp_path)),
+                 lambda: build_match_arrays(np.zeros(8, np.int64),
+                                            np.ones(8, bool),
+                                            np.zeros(8, np.int64),
+                                            np.ones(8, np.int64))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
