@@ -118,11 +118,17 @@ is not 0):
              build/train_smoke/: every step's loss finite, the launches
              (K1, K6 three a forward, K6b three a backward), K6b within its
              rounding bound of its plain version at the three layer shapes
-             on the batch's real graphs (timed beside its bound, the plain
-             version and index_add_), the card's step against the CPU's on
-             one cloud with the same draws and graphs, the checkpoint
-             re-read giving the same forward; ms a step, shapes/s, peak
-             memory;
+             on the batch's real graphs, the same bits on three launches,
+             and the CPU plain version's bits on the first cloud (the
+             in-degree's max and 99th percentile beside them; timed beside
+             its bound, the plain version and index_add_, its device time
+             split into the transpose, pass 1 and pass 2, and, with
+             `--parent DIR`, the parent tree's K6b on the same inputs),
+             the card's step against
+             the CPU's on one cloud with the same draws and graphs, the
+             gradient leaves whose bits differ between two identical steps
+             (recorded), the checkpoint re-read giving the same forward; ms
+             a step, shapes/s, peak memory;
   serve      both models exported (`export.export_serving_bundle`) at
              8 x 10000 x 6 under bench.py's config 2 into
              build/serve_smoke/bundle, served by `python -m
@@ -142,9 +148,13 @@ is not 0):
              step ms, phase A / B / C ms, peak memory.
 
 The line before the last is the `kernels` summary, the last line the
-device record. Without a CUDA device, or outside a checkout of the repo,
-it exits with an error and prints no result. nvcc's full register report
-is in `build.log` beside the built library.
+device record. `--parent DIR` (an older checkout with the atomic K6b of
+PRs 9-12, e.g. unpacked with `git archive` into build/parent; a tree that
+declares another C interface for it is refused) adds that tree's K6b
+timing to `train`.
+Without a CUDA device, or outside a checkout of the repo, it exits with
+an error and prints no result. nvcc's full register report is in
+`build.log` beside the built library.
 """
 import json
 import math
@@ -247,6 +257,7 @@ BATCH, N_POINTS, K = 8, 10000, 64
 HEADLINE_REPS = 6   # timed headline batches (their spread is about 1%)
 BIG_BATCH, BIG_POINTS = 2, 32768   # the matrix-free eval's clouds
 DEVICE = "cuda"
+PARENT_TREE = None  # --parent DIR: an older checkout whose K6b `train` times
 BIG_MEM_GIB = 4.0   # one dense 32768 x 32768 float32 affinity
 
 
@@ -2728,22 +2739,149 @@ def train_sets():
     return mixed, cloud_set(False, train=False)
 
 
-def check_gather_reduce_backward(name, a, idx, order, gen):
+def k6b_passes_ms(a, idx, order, mx, cot, calls=10):
+    """Device ms of one K6b call, apart: the transpose (k6b_transpose_*
+    and CUB's radix sort: every kernel of the call but the two passes,
+    padding copies included, none at C = 64 or 128), pass 1 (k6b_sources)
+    and pass 2 (k6b_rows), from `calls` calls under torch.profiler. Each
+    part is its kernels' total over the launches the trace holds of its
+    own first kernel (k6b_transpose_keys, k6b_sources, k6b_rows: one a
+    call), so a trace that misses whole calls still gives one call's time;
+    profiled again, up to three times, while it holds fewer than `calls`
+    (`calls_traced`: each part's count in the trace kept; a part with none
+    is None, not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sednet_tpu_torch.ops.graph import _gather_reduce_backward_launch
+
+    def call():
+        return _gather_reduce_backward_launch(a, idx, order, mx, *cot)
+
+    parts = {"transpose_ms": "k6b_transpose_keys", "pass1_ms": "k6b_sources",
+             "pass2_ms": "k6b_rows"}
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):   # again while the trace misses some of the calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        seen = {part: sum(ev.count for ev in events if first in ev.key)
+                for part, first in parts.items()}
+        if min(seen.values()) == calls:
+            break
+    out = dict.fromkeys(parts, 0.0)
+    for ev in events:
+        part = ("pass1_ms" if "k6b_sources" in ev.key else
+                "pass2_ms" if "k6b_rows" in ev.key else "transpose_ms")
+        if seen[part]:
+            out[part] += float(ev.self_device_time_total) / 1e3 / seen[part]
+    for part, count in seen.items():   # not measured: no launch traced
+        if not count:
+            out[part] = None
+    out["calls_traced"] = seen
+    return out
+
+
+# The C interface of the atomic K6b (PRs 9-12): a, idx, order, mx, gs, gsq,
+# gmx, then B, N, C, K, then da and the stream, as its _build.py declares
+# it in _SIGNATURES.
+PARENT_K6B_SIGNATURE = ("_P",) * 7 + ("_I",) * 4 + ("_P", "_P")
+
+
+def _declared_signature(root, name):
+    """The argument types (their names in `_build.py`, e.g. "_P") that the
+    tree at `root` declares for C entry point `name` in
+    `sednet_tpu_torch/ops/_build.py`'s `_SIGNATURES`, or None."""
+    import ast
+
+    path = os.path.join(root, "sednet_tpu_torch", "ops", "_build.py")
+    tree = ast.parse(open(path).read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(getattr(t, "id", None) == "_SIGNATURES"
+                        for t in node.targets)):
+            for key, value in zip(node.value.keys, node.value.values):
+                if getattr(key, "value", None) == name:
+                    return tuple(getattr(e, "id", "?") for e in value.elts)
+    return None
+
+
+def check_parent_tree(root):
+    """Raise ValueError unless the tree at `root` declares the atomic K6b's
+    C interface (`PARENT_K6B_SIGNATURE`), the only one `parent_k6b` binds."""
+    declared = _declared_signature(root, "sednet_gather_reduce_backward")
+    if declared != PARENT_K6B_SIGNATURE:
+        raise ValueError(
+            f"parent_k6b: {root} declares sednet_gather_reduce_backward"
+            f"{declared}; only the atomic kernel's "
+            f"{PARENT_K6B_SIGNATURE} can be bound")
+
+
+def parent_k6b(root):
+    """The parent tree's K6b (root: an older checkout, e.g. unpacked with
+    `git archive` into build/parent), the atomic kernel of PRs 9-12: its
+    csrc/gather_reduce_bwd.cu built alone with this tree's nvcc flags into
+    build/k6b_parent/ and bound by ctypes with that kernel's C interface
+    (`PARENT_K6B_SIGNATURE`). A tree whose `_build.py` declares another
+    signature is refused before anything is built. Returns call(a, idx,
+    order, mx, cot) -> da, which zeroes da as the parent's wrapper did."""
+    import ctypes
+
+    import torch
+    from sednet_tpu_torch.ops import _build
+
+    check_parent_tree(root)
+    src = os.path.join(root, "sednet_tpu_torch", "csrc",
+                       "gather_reduce_bwd.cu")
+    out = os.path.join(ROOT, "build", "k6b_parent", "libk6b_parent.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", src, "-o",
+                    out], check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(out).sednet_gather_reduce_backward
+    types = {"_P": ctypes.c_void_p, "_I": ctypes.c_int}
+    fn.argtypes = [types[t] for t in PARENT_K6B_SIGNATURE]
+    fn.restype = ctypes.c_int
+
+    def call(a, idx, order, mx, cot):
+        b, n, c = a.shape
+        da = torch.zeros_like(a)
+        err = fn(a.data_ptr(), idx.data_ptr(),
+                 0 if order is None else order.data_ptr(), mx.data_ptr(),
+                 *(t.data_ptr() for t in cot), b, n, c, idx.shape[2],
+                 da.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K6b: CUDA error {err}")
+        return da
+
+    return call
+
+
+def check_gather_reduce_backward(name, a, idx, order, gen, parent=None):
     """K6b against gather_reduce_backward_plain on one layer's signed table,
     graph and forward max, with cotangents drawn from `gen`: every element
-    within backward_error_bound (the rounding of two orders of the same
-    adds). Timed: K6b, the plain version, and index_add_ of the
-    precomputed (B N K, C) terms into (B N, C), the nearest library call,
-    which does less (no gather, no tie count). The bound counts a, mx, gs,
-    gsq, gmx, the int64 graph and the order read once and da written once,
-    and 6 operations a gathered value (a compare and an add counting ties;
-    two products and two adds forming and adding the term)."""
+    within backward_error_bound of the plain version on the card; three
+    launches with the same bits; on the first cloud, the CPU plain
+    version's bits on every row. Recorded: the in-degree's max, 99th
+    percentile and mean. Timed: K6b (one call, and its device time
+    split into the transpose, pass 1 and pass 2), the plain version, and
+    index_add_ of the precomputed (B N K, C) terms into (B N, C), the
+    nearest library call, which does less (no gather, no tie count); and,
+    given `parent` (`parent_k6b`), the parent tree's K6b on the same
+    inputs. The bound counts a, mx, gs, gsq, gmx, the int64 graph and the
+    order read once and da written once, and 6 operations a gathered value
+    (a compare and an add counting ties; two products and two adds forming
+    and adding the term)."""
     import torch
     from sednet_tpu_torch.ops.graph import (backward_error_bound,
                                             gather_neighbors,
                                             gather_reduce_backward,
                                             gather_reduce_backward_plain,
-                                            gather_reduce_plain)
+                                            gather_reduce_plain,
+                                            graph_transpose)
 
     b, n, c = a.shape
     k = idx.shape[-1]
@@ -2758,6 +2896,21 @@ def check_gather_reduce_backward(name, a, idx, order, gen):
     if not bool((err <= bound).all()):
         raise AssertionError(f"K6b {name}: {float(err.max())} above the "
                              f"rounding bound (max {float(bound.max())})")
+    same = all(torch.equal(gather_reduce_backward(a, idx, mx, *cot,
+                                                  order=order), da)
+               for _ in range(2))
+    if not same:
+        raise AssertionError(f"K6b {name}: three launches, other bits")
+    ends = graph_transpose(idx, n)[0]
+    deg = torch.diff(ends, prepend=ends.new_zeros(1))
+    got = da[:1].cpu()
+    want = gather_reduce_backward_plain(
+        *(t[:1].cpu() for t in (a, idx, mx, *cot)))
+    bits = {"rows": n, "equal_cpu_plain": torch.equal(got, want),
+            "rows_differing": int((got != want).any(-1).sum())}
+    if not bits["equal_cpu_plain"]:
+        raise AssertionError(f"K6b {name}: the first cloud against the "
+                             f"CPU's plain version {bits}")
     g = gather_neighbors(a, idx)
     tie = g == mx[:, :, None, :]
     cnt = tie.sum(2, dtype=a.dtype)
@@ -2769,13 +2922,19 @@ def check_gather_reduce_backward(name, a, idx, order, gen):
     del g, tie
     bms, by = bound_ms(6 * b * n * k * c,
                        4 * 6 * b * n * c + 8 * idx.numel() + 4 * b * n)
+    degf = deg.double()
     out = {"case": name, "shape": [b, n, k, c],
            "max_abs_err": float(err.max()),
            "max_err_over_bound": float((err / bound.clamp_min(1e-30)).max()),
+           "same_bits_3_launches": same, "first_cloud_bits": bits,
+           "in_degree": {"max": int(deg.max()),
+                         "p99": float(torch.quantile(degf, 0.99)),
+                         "mean": float(degf.mean())},
            "ms": time_ms(lambda: gather_reduce_backward(a, idx, mx, *cot,
                                                         order=order), reps=20),
            "device_ms": burst_ms(lambda: gather_reduce_backward(
                a, idx, mx, *cot, order=order)),
+           "device_split": k6b_passes_ms(a, idx, order, mx, cot),
            "plain_ms": time_ms(lambda: gather_reduce_backward_plain(
                a, idx, mx, *cot), reps=5),
            "library_ms": time_ms(lambda: torch.zeros(
@@ -2783,6 +2942,12 @@ def check_gather_reduce_backward(name, a, idx, order, gen):
                reps=10),
            "library": "index_add_ of the precomputed terms (less work)",
            "bound_ms": bms, "bound_by": by}
+    if parent is not None:
+        old = parent(a, idx, order, mx, cot)
+        out["parent"] = {
+            "ms": time_ms(lambda: parent(a, idx, order, mx, cot), reps=20),
+            "device_ms": burst_ms(lambda: parent(a, idx, order, mx, cot)),
+            "max_abs_diff": float((old - da).abs().max())}
     del terms, flat
     return out
 
@@ -2887,6 +3052,33 @@ def card_vs_cpu_step(model, cfg, batch):
             or rec["grad_rel_err_max"] > TRAIN_GRAD_RTOL):
         raise AssertionError(f"train: the card's step against the CPU's {rec}")
     return rec
+
+
+def repeated_step_bits(model, cfg, batch):
+    """One step's gradient computed twice from the same parameters, batch
+    and triplet draws (forward, losses, backward): the gradient leaves
+    whose bits differ between the two. Recorded, not held: K6b is
+    deterministic, other kernels of the step may not be."""
+    import torch
+    from sednet_tpu_torch import train as T
+
+    loss_fn = T.make_loss_fn(model, cfg)
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        total, _ = loss_fn(batch, generator=torch.Generator().manual_seed(
+            TRAIN_SEED))
+        total.backward()
+        grads.append({k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    differ = sorted(k for k in grads[0]
+                    if not torch.equal(grads[0][k], grads[1][k]))
+    return {"leaves": len(grads[0]), "same_bits": not differ,
+            "leaves_differing": differ,
+            "max_abs_diff": max((float((grads[0][k] - grads[1][k]).abs().max())
+                                 for k in differ), default=0.0)}
 
 
 def phase_train(models, card):
@@ -3005,15 +3197,24 @@ def phase_train(models, card):
     prof = _device_profile(lambda: step(batch, generator=gen),
                            "train_step_trace.json")
     prof.pop("stages")
+    # K6b's own kernels in the profiled step (its transpose's CUB sort and
+    # scan aside, whose names it shares with other sorts)
+    prof["k6b_kernels_ms"] = _kernel_share(
+        os.path.join(ROOT, "build", "train_step_trace.json"), "k6b_")[0]
 
     order = locality_order(x[..., :3].contiguous())
     cot_gen = torch.Generator().manual_seed(TRAIN_SEED)
+    parent = parent_k6b(PARENT_TREE) if PARENT_TREE else None
     k6b = [check_gather_reduce_backward(
-        name, a, flash_topk(g, g, K, metric=metric), order, cot_gen)
+        name, a, flash_topk(g, g, K, metric=metric), order, cot_gen, parent)
         for name, g, a, metric in _fused_layer_inputs(model, x)]
-    versus_cpu = card_vs_cpu_step(model, cfg, batch)
+    try:
+        versus_cpu, failure = card_vs_cpu_step(model, cfg, batch), None
+    except AssertionError as exc:   # emitted with the record, then raised
+        versus_cpu, failure = {"failed": str(exc)}, exc
+    repeat = repeated_step_bits(model, cfg, batch)
 
-    rec = {"phase": "train", "ok": True, "card": card,
+    rec = {"phase": "train", "ok": failure is None, "card": card,
            "config": "configs/config_SEDNet_normal.yml",
            "batch": [cfg.batch_size, cfg.num_points], "k": cfg.knn,
            "steps": TRAIN_STEPS, "step_losses": losses,
@@ -3026,9 +3227,12 @@ def phase_train(models, card):
            "save_npz_s": save_s, "peak_gib": peak_gib,
            "peak_above_start_gib": peak_above_start_gib,
            "k6b": k6b, "card_vs_cpu": versus_cpu,
+           "repeated_step_bits": repeat,
            "checkpoint": os.path.relpath(ckpt, ROOT),
            "checkpoint_forward_max_diff": ckpt_diff}
     emit(rec)
+    if failure is not None:
+        raise failure
     del model, optimizer, reread, state
     torch.cuda.empty_cache()
     return counts, k6b
@@ -3418,7 +3622,9 @@ def phase_parsenet_e2e(models, card):
     fit_ok = all(s["metrics"]["fit"] > 0 for s in steps) and min(matched) >= 1
     launches_ok = all(s["launches"] == E2E_PER_STEP for s in steps)
     versus_cpu = e2e_card_vs_cpu(model, cfg, params0, seen[0])
-    # the recomputation is step 1's loss (K6b's atomics aside)
+    # the recomputation from step 1's parameters and inputs gives step 1's
+    # loss, a forward's value that no backward (K6b among them) enters;
+    # held to 1e-5 of it, and whether the bits agree is recorded
     same_step = abs(versus_cpu["loss"] - steps[0]["metrics"]["loss"]) <= (
         1e-5 * abs(steps[0]["metrics"]["loss"]))
     rec = {"phase": "parsenet_e2e",
@@ -3432,6 +3638,8 @@ def phase_parsenet_e2e(models, card):
            "matched_geometric_segments": matched, "peak_gib": peak_gib,
            "launches_per_step_expected": E2E_PER_STEP,
            "card_vs_cpu": versus_cpu,
+           "step1_loss_recomputed_same_bits": (
+               versus_cpu["loss"] == steps[0]["metrics"]["loss"]),
            "cut": "4 synthetic clouds and 3 steps: the repository has no "
                   "ParseNet h5"}
     emit(rec)
@@ -3467,8 +3675,21 @@ KERNELS = {
 
 
 def main():
+    import argparse
+
     import torch
 
+    global PARENT_TREE
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                 "port on one NVIDIA GPU.")
+    ap.add_argument("--parent", default=None,
+                    help="an older checkout with the atomic K6b of PRs 9-12 "
+                         "(e.g. unpacked with git archive into "
+                         "build/parent), whose K6b the train phase times on "
+                         "the same inputs")
+    PARENT_TREE = ap.parse_args().parent
+    if PARENT_TREE:
+        check_parent_tree(PARENT_TREE)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -3555,7 +3776,11 @@ def main():
             "bound_f32_ms": main_case.get("bound_f32_ms"),
             "library_ms": main_case["library_ms"],
             "case": main_case["case"], "parity": "ok",
-            **({"launches_by_path": k1_by_path} if key == "K1" else {})})
+            **({"launches_by_path": k1_by_path} if key == "K1" else {}),
+            **({"device_ms": main_case["device_ms"],
+                "device_split": main_case["device_split"],
+                "earlier_device_ms": main_case.get("parent", {}).get(
+                    "device_ms")} if key == "K6b" else {})})
     emit({"phase": "done", "seconds": time.time() - T_START})
     print(card, flush=True)
     emit({"kernels": summary})

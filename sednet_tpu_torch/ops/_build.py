@@ -7,8 +7,9 @@ into one shared library with a plain C interface. The library lands in
 files under `csrc/` (headers included) and the flags, so an unchanged
 checkout builds once.
 
-Every C entry point returns a `cudaError_t` (0 on success); `check` turns
-anything else into an exception.
+Every C entry point but the scratch-size queries (`_RESTYPES`,
+`sednet_segsum_chunks`) returns a `cudaError_t` (0 on success); `check`
+turns anything else into an exception.
 """
 from __future__ import annotations
 
@@ -40,11 +41,15 @@ _SIGNATURES = {
     "sednet_fused_edge_reductions": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _P, _P, _P, _P, _P, _P, _P, _P),
     "sednet_gather_reduce": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "sednet_gather_reduce_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _P, _P),
+    "sednet_gather_reduce_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _P, _P, _P, _P),
+    "sednet_graph_transpose": (_P, _I, _I, _I, _P, _L, _P, _P, _P),
+    "sednet_graph_transpose_scratch": (_L, _I),
     "sednet_segsum_sorted": (_P, _P, _I, _L, _I, _P, _P, _P, _P),
     "sednet_segsum_chunks": (_L,),
 }
+# entry points that return a size, not a cudaError_t
+_RESTYPES = {"sednet_graph_transpose_scratch": ctypes.c_longlong}
 
 _lib = None
 build_info: dict = {}
@@ -122,7 +127,7 @@ def lib() -> ctypes.CDLL:
         for name, args in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         handle.sednet_error_string.argtypes = [ctypes.c_int]
         handle.sednet_error_string.restype = ctypes.c_char_p
         _lib = handle

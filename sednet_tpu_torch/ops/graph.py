@@ -9,11 +9,15 @@ three reductions over the neighbours are kernel K6 (`gather_reduce`,
 (`gather_reduce_backward`, `csrc/gather_reduce_bwd.cu`), the op
 `sednet::gather_reduce_backward` that K6's autograd formula calls: on the
 card a backward through K6 launches it, on the CPU it takes
-`gather_reduce_backward_plain`. The JAX package has no kernel for that
-gradient: it differentiates XLA's gather. As ops, both trace under
-`torch.export` into calls in the exported graph. Both kernels walk the
-rows in a given order, a Morton curve of the points (`locality_order`), so
-that the rows a block handles share their neighbours.
+`gather_reduce_backward_plain`. K6b sums each row of the gradient over the
+graph's transpose (`graph_transpose`) in an order the graph alone fixes,
+with no float atomics: the same bits on every launch and under every row
+order, the bits of the plain version run on the CPU. The JAX package has
+no kernel for that gradient: it differentiates XLA's gather. As ops, both
+trace under `torch.export` into calls in the exported graph. Both kernels
+walk the rows in a given order, a Morton curve of the points
+(`locality_order`), so that the rows a block handles share their
+neighbours.
 """
 from __future__ import annotations
 
@@ -209,7 +213,10 @@ def gather_reduce_backward_plain(a, idx, mx, gs, gsq, gmx):
     into da[j], cnt[i] the number of positions of row i equal to its max
     (the max's cotangent split over its ties, as JAX's reduce_max VJP and
     torch's amax backward split it), through the (B, N, K, C) gather and
-    `index_add_`."""
+    `index_add_`. On the CPU `index_add_` adds in ascending index order, so
+    each da[j] is a sequential sum from +0 of its terms in ascending
+    position (b N + i) K + k, the order of `graph_transpose`'s lists: the
+    sum K6b computes for every destination."""
     b, n, c = a.shape
     g = gather_neighbors(a, idx)
     tie = g == mx[:, :, None, :]
@@ -224,11 +231,67 @@ def gather_reduce_backward_plain(a, idx, mx, gs, gsq, gmx):
     return da.reshape(b, n, c)
 
 
+def graph_transpose(idx, n: int):
+    """The transpose of a kNN graph idx (B, N, K) int64 (entries clamped
+    into [0, N) within their shape): the edges e = (b N + i) K + k sorted
+    by their destination b N + clamp(idx[b, i, k]) with a stable sort, so
+    that each destination's edges stand in ascending e. Returns (ends
+    (B N,) int32, the inclusive end of each destination's edges, the
+    cumsum of the in-degree; eids (B N K,) int32, the edge ids in sorted
+    order), on idx's device. A CUDA tensor takes K6b's transpose
+    (`csrc/gather_reduce_bwd.cu` sednet_graph_transpose: CUB's stable
+    radix sort on the bits of B N - 1 alone), a CPU tensor
+    `graph_transpose_plain`; both give the same arrays."""
+    _check_transpose(idx, n)
+    if idx.is_cuda:
+        return _transpose_launch(idx, n)
+    return graph_transpose_plain(idx, n)
+
+
+def _check_transpose(idx, n):
+    b, rows, k = idx.shape
+    if rows != n or b * n * k >= 2 ** 31 or idx.dtype != torch.int64:
+        raise ValueError(f"graph_transpose: idx {tuple(idx.shape)} "
+                         f"{idx.dtype} for N={n} (int64, B N K below 2^31)")
+
+
+def graph_transpose_plain(idx, n: int):
+    """`graph_transpose` in plain PyTorch: the flat destinations, torch's
+    stable sort, and the ends by a search in the sorted keys (not a
+    bincount, which would read the largest key back to the host)."""
+    b = idx.shape[0]
+    dest = (idx.clamp(0, n - 1) + n * torch.arange(
+        b, device=idx.device, dtype=idx.dtype)[:, None, None]).reshape(-1)
+    keys, eids = torch.sort(dest.to(torch.int32), stable=True)
+    ends = torch.searchsorted(
+        keys, torch.arange(b * n, device=idx.device, dtype=torch.int32),
+        right=True, out_int32=True)
+    return ends, eids.to(torch.int32)
+
+
+def _transpose_launch(idx, n):
+    """K6b's transpose on the card: (ends, eids)."""
+    b, _, k = idx.shape
+    idx = idx.contiguous()
+    lib = _build.lib()
+    nbytes = lib.sednet_graph_transpose_scratch(b * n * k, b * n)
+    dev = idx.device
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
+    ends = torch.empty(b * n, dtype=torch.int32, device=dev)
+    eids = torch.empty(b * n * k, dtype=torch.int32, device=dev)
+    err = lib.sednet_graph_transpose(
+        idx.data_ptr(), b, n, k, scratch.data_ptr(), nbytes, ends.data_ptr(),
+        eids.data_ptr(), _build.stream_of(idx))
+    _build.check(err, "graph_transpose")
+    return ends, eids
+
+
 def _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq, gmx):
     _check_graph("gather_reduce_backward", a, idx)
     if order is not None:
         _check_order(order, a)
     b, n, c = a.shape
+    k = idx.shape[2]
     ap, mxp, gsp, gsqp, gmxp = (
         _kernel_table(f"gather_reduce_backward {name}", t.contiguous())
         for name, t in (("a", a), ("mx", mx), ("gs", gs), ("gsq", gsq),
@@ -239,12 +302,18 @@ def _gather_reduce_backward_launch(a, idx, order, mx, gs, gsq, gmx):
     cp = ap.shape[-1]
     idx = idx.contiguous()
     order = None if order is None else order.contiguous()
-    da = torch.zeros((b, n, cp), dtype=torch.float32, device=a.device)
+    _check_transpose(idx, n)
+    ends, eids = _transpose_launch(idx, n)
+    dev = a.device
+    mask = torch.empty(eids.numel() * cp // 32, dtype=torch.int32, device=dev)
+    w = torch.empty((b, n, cp), dtype=torch.float32, device=dev)
+    da = torch.empty((b, n, cp), dtype=torch.float32, device=dev)
     err = _build.lib().sednet_gather_reduce_backward(
         ap.data_ptr(), idx.data_ptr(),
         0 if order is None else order.data_ptr(), mxp.data_ptr(),
-        gsp.data_ptr(), gsqp.data_ptr(), gmxp.data_ptr(), b, n, cp,
-        idx.shape[2], da.data_ptr(), _build.stream_of(a))
+        gsp.data_ptr(), gsqp.data_ptr(), gmxp.data_ptr(), ends.data_ptr(),
+        eids.data_ptr(), b, n, cp, k, mask.data_ptr(), w.data_ptr(),
+        da.data_ptr(), _build.stream_of(a))
     _build.check(err, "gather_reduce_backward")
     gather_reduce_backward.launches += 1
     return _unpad(da, c)
@@ -274,10 +343,11 @@ def gather_reduce_backward(a, idx, mx, gs, gsq, gmx, order=None):
     the forward's max mx and the cotangents gs, gsq, gmx (each (B, N, C));
     see `gather_reduce_backward_plain` for the formula. Through the op
     `sednet::gather_reduce_backward`: a CUDA tensor launches the kernel,
-    whose atomic adds make the last bits vary from run to run
-    (`backward_error_bound` bounds its distance from the plain version); a
-    CPU tensor takes the plain version. order: as in `gather_reduce`, the
-    row order the kernel's blocks walk."""
+    which sums each row of da over the graph's transpose in a fixed order
+    and gives the same bits on every launch and under every order: those
+    of the plain version run on the CPU. A CPU tensor takes the plain
+    version. order: as in `gather_reduce`, the row order the kernel's
+    blocks walk."""
     if order is not None:
         _check_order(order, a)
     return torch.ops.sednet.gather_reduce_backward(a, idx, order, mx, gs,

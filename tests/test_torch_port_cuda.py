@@ -19,7 +19,8 @@ from sednet_tpu_torch.data import make_synthetic_shape
 from sednet_tpu_torch.ops.graph import (backward_error_bound, gather_reduce,
                                         gather_reduce_backward,
                                         gather_reduce_backward_plain,
-                                        gather_reduce_plain, locality_order)
+                                        gather_reduce_plain, graph_transpose,
+                                        locality_order)
 from sednet_tpu_torch.ops.flash_topk import (compare_with_plain, flash_topk,
                                              topk_plain)
 
@@ -591,17 +592,21 @@ def _bwd_inputs(cuda, seed, b, n, c, k, ties):
 
 
 def _bwd_holds(a, idx, mx, cot, order=None):
-    """Launch K6b once and hold it to its plain version within
-    backward_error_bound (the atomics add in no fixed order)."""
+    """Launch K6b once and hold it to its plain version run on the CPU
+    copies of the inputs: every element within backward_error_bound, and
+    the same bits."""
     before = gather_reduce_backward.launches
     da = gather_reduce_backward(a, idx, mx, *cot, order=order)
     torch.cuda.synchronize()
     assert gather_reduce_backward.launches == before + 1
-    want = gather_reduce_backward_plain(a, idx, mx, *cot)
-    bound = backward_error_bound(a, idx, mx, *cot)
-    err = (da.double() - want.double()).abs()
+    cpu = [t.cpu() for t in (a, idx, mx, *cot)]
+    want = gather_reduce_backward_plain(*cpu)
+    bound = backward_error_bound(*cpu)
+    got = da.cpu()
+    err = (got.double() - want.double()).abs()
     assert da.shape == a.shape and bool((err <= bound).all()), (
         float(err.max()), float(bound.max()))
+    assert torch.equal(got, want)
     return da
 
 
@@ -627,6 +632,68 @@ def test_gather_reduce_backward_kernel_matches_plain(cuda, b, c, k, ties,
             c), dtype=torch.float32).to(cuda)
         order = locality_order(xyz)
     _bwd_holds(a, idx, mx, cot, order)
+
+
+# K6b's transpose on the card (CUB's stable radix sort on the bits of
+# B N - 1) gives the CPU's arrays bit for bit: the sorted edge ids and
+# the ends; out-of-range and repeated neighbours, a hub.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", [(1, 2003, 16), (4, 10000, 64),
+                                   (3, 300, 128)])
+def test_graph_transpose_on_card_matches_cpu(cuda, b, n, k):
+    rng = np.random.RandomState(n + k)
+    idx = rng.randint(0, n, (b, n, k))
+    idx[:, ::3, 1 % k] = idx[:, ::3, 0]
+    idx[0, :9, 0] = -5
+    idx[-1, 4, :3] = n + 17
+    idx[:, :, -1] = 7
+    idx = torch.from_numpy(idx)
+    want = graph_transpose(idx, n)
+    got = graph_transpose(idx.to(cuda), n)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+# K6b sums every row of da in an order that the graph alone fixes: three
+# launches give the same bits, and so do the identity (None), the Morton
+# order of the points and a random permutation of each shape's rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,ties", [(64, 64, False), (128, 16, True),
+                                      (200, 33, True)])
+def test_gather_reduce_backward_kernel_same_bits_every_launch_and_order(
+        cuda, c, k, ties):
+    b, n = 3, 2003
+    a, idx, mx, cot = _bwd_inputs(cuda, c + 3 * k, b, n, c, k, ties)
+    first = gather_reduce_backward(a, idx, mx, *cot)
+    for _ in range(2):
+        assert torch.equal(gather_reduce_backward(a, idx, mx, *cot), first)
+    rng = np.random.RandomState(c)
+    xyz = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32)).to(cuda)
+    perm = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(b)])
+                            .astype(np.int32)).to(cuda)
+    for order in (locality_order(xyz), perm):
+        assert torch.equal(gather_reduce_backward(a, idx, mx, *cot,
+                                                  order=order), first)
+
+
+# A hub: one row listed by every row of its shape (in-degree N = 5000),
+# walked whole by one warp like every other row: the CPU's plain version's
+# bits, within the rounding bound, and the same bits on every launch and
+# under every order.
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128])
+def test_gather_reduce_backward_kernel_hub(cuda, c):
+    b, n, k = 2, 5000, 16
+    a, idx, _, cot = _bwd_inputs(cuda, 77 + c, b, n, c, k, True)
+    idx[:, :, 3] = 17
+    mx = gather_reduce_plain(a, idx)[2]
+    ends = graph_transpose(idx, n)[0].cpu()
+    deg = torch.diff(ends, prepend=ends.new_zeros(1))
+    assert int(deg.max()) >= 4096
+    order = locality_order(torch.rand((b, n, 3), device=cuda))
+    da = _bwd_holds(a, idx, mx, cot, order)
+    for _ in range(2):
+        assert torch.equal(gather_reduce_backward(a, idx, mx, *cot), da)
 
 
 # A backward through K6 on a table that requires grad launches K6b once (no

@@ -176,3 +176,150 @@ def test_encoder_threads_one_morton_order(monkeypatch):
     assert len(seen) == 3 and all(torch.equal(o, order) for o in seen)
     np.testing.assert_allclose(got.embedding.numpy(),
                                np.asarray(want.embedding), atol=1e-4)
+
+
+def _bwd_case(b, n, c, k, seed, hub=None):
+    """K6b's inputs on the CPU from a numpy seed: a table with dense ties
+    (values in {-2 .. 2}), a graph with repeated and out-of-range
+    neighbours (and, given `hub`, every row listing row `hub` first), K6's
+    max on it and three cotangents."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-2, 3, (b, n, c)).astype(np.float32)
+    idx = rng.integers(0, n, (b, n, k))
+    idx[:, ::3, 1] = idx[:, ::3, 0]
+    idx[0, :5, 0] = -3
+    idx[-1, 7, :3] = n + 11
+    if hub is not None:
+        idx[:, :, 0] = hub
+    a, idx = torch.from_numpy(a), torch.from_numpy(idx)
+    cot = [torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32))
+           for _ in range(3)]
+    return a, idx, gather_reduce_plain(a, idx)[2], cot
+
+
+def _np_terms(a, idx, mx, gs, gsq, gmx):
+    """The terms of K6b's sums in numpy float32, each rounded as the plain
+    version rounds it: (gs + (2 a[j]) gsq) + (tie ? gmx / cnt : 0), per
+    edge e = (b N + i) K + k: (B N K, C), and the flat destinations."""
+    a, mx, gs, gsq, gmx = (t.numpy() for t in (a, mx, gs, gsq, gmx))
+    b, n, c = a.shape
+    j = np.clip(idx.numpy(), 0, n - 1)
+    g = a[np.arange(b)[:, None, None], j]
+    tie = g == mx[:, :, None, :]
+    cnt = tie.sum(2).astype(np.float32)
+    w = np.where(cnt > 0, gmx / np.maximum(cnt, np.float32(1)), np.float32(0))
+    t = gs[:, :, None, :] + (np.float32(2) * g) * gsq[:, :, None, :]
+    t = t + np.where(tie, w[:, :, None, :], np.float32(0))
+    dest = (j + n * np.arange(b)[:, None, None]).reshape(-1)
+    return t.reshape(-1, c).astype(np.float32), dest
+
+
+# K6b's transpose: every edge e = (b N + i) K + k exactly once, at its
+# clamped destination b N + j, in ascending e within a destination, and
+# the ends the cumsum of the in-degree; out-of-range and repeated
+# neighbours, B = 1 and 3.
+@pytest.mark.parametrize("b", [1, 3])
+def test_graph_transpose_matches_numpy(b):
+    n, k = 257, 6
+    _, idx, _, _ = _bwd_case(b, n, 8, k, b)
+    ends, eids = graph.graph_transpose(idx, n)
+    assert ends.dtype == eids.dtype == torch.int32
+    e = eids.numpy().astype(np.int64)
+    np.testing.assert_array_equal(np.sort(e), np.arange(b * n * k))
+    dest = (np.clip(idx.numpy(), 0, n - 1)
+            + n * np.arange(b)[:, None, None]).reshape(-1)
+    ds = dest[e]
+    assert np.all(np.diff(ds) >= 0)
+    assert np.all(np.diff(e)[np.diff(ds) == 0] > 0)
+    np.testing.assert_array_equal(
+        ends.numpy(), np.cumsum(np.bincount(dest, minlength=b * n)))
+    starts = np.concatenate([[0], ends.numpy()[:-1]])
+    for d in (0, 5, b * n - 1):
+        assert np.all(ds[starts[d]:ends[d]] == d)
+
+
+# The property K6b's bit equality rests on: the plain version (the CPU's
+# index_add_) is, bit for bit, the sequential sum from +0 of each
+# destination's terms in ascending e, walked over graph_transpose's lists;
+# also with a hub, a row listed first by every row (in-degree above N).
+@pytest.mark.parametrize("c,k,hub", [(32, 4, None), (64, 16, None),
+                                     (32, 8, 5), (64, 4, 0)])
+def test_gather_reduce_backward_plain_is_sequential_sum(c, k, hub):
+    b, n = 2, 300
+    a, idx, mx, cot = _bwd_case(b, n, c, k, c + k, hub=hub)
+    terms, _ = _np_terms(a, idx, mx, *cot)
+    ends, eids = (t.numpy() for t in graph.graph_transpose(idx, n))
+    want = np.zeros((b * n, c), np.float32)
+    start = 0
+    for d in range(b * n):
+        acc = np.zeros(c, np.float32)
+        for e in eids[start:ends[d]]:
+            acc = acc + terms[e]
+        want[d] = acc
+        start = ends[d]
+    got = graph.gather_reduce_backward_plain(a, idx, mx, *cot)
+    assert torch.equal(got, torch.from_numpy(want).reshape(b, n, c))
+
+
+def _emulate_k6b(a, idx, mx, gs, gsq, gmx, order):
+    """numpy emulation of csrc/gather_reduce_bwd.cu's passes at the padded
+    width, in the kernel's order of adds: pass 1 along `order` writes the
+    tie mask (word u of edge e holds, at bit l, the tie of channel l CJ +
+    u, CJ = C / 32) and w; pass 2 walks each destination's list whole
+    along `order`, reading ties back from the mask."""
+    b, n, c = a.shape
+    cp = -(-c // 32) * 32
+    cj = cp // 32
+    a, mx, gs, gsq, gmx = (np.pad(t.numpy(), ((0, 0), (0, 0), (0, cp - c)))
+                           .reshape(b * n, cp)
+                           for t in (a, mx, gs, gsq, gmx))
+    k = idx.shape[2]
+    j = np.clip(idx.numpy(), 0, n - 1) + n * np.arange(b)[:, None, None]
+    j = j.reshape(b * n, k)
+    ends, eids = (t.numpy().astype(np.int64)
+                  for t in graph.graph_transpose(idx, n))
+    rows = (order.numpy() + n * np.arange(b)[:, None]).reshape(-1)
+    mask = np.zeros(b * n * k * cj, np.uint32)
+    w = np.zeros((b * n, cp), np.float32)
+    shifts = np.arange(32, dtype=np.uint32)
+    for r in rows:
+        tie = a[j[r]] == mx[r]
+        cnt = tie.sum(0).astype(np.float32)
+        w[r] = np.where(cnt > 0, gmx[r] / np.maximum(cnt, np.float32(1)), 0)
+        words = (tie.reshape(k, 32, cj).astype(np.uint32)
+                 << shifts[None, :, None]).sum(1, dtype=np.uint32)
+        mask[r * k * cj:(r + 1) * k * cj] = words.reshape(-1)
+
+    def walk(d, e0, e1):
+        acc = np.zeros(cp, np.float32)
+        a2 = np.float32(2) * a[d]
+        for e in eids[e0:e1]:
+            i = e // k
+            bits = mask[e * cj:(e + 1) * cj]
+            tie = ((bits[None, :] >> shifts[:, None]) & 1).reshape(-1) == 1
+            t = gs[i] + a2 * gsq[i]
+            acc = acc + (t + np.where(tie, w[i], np.float32(0)))
+        return acc
+
+    starts = np.concatenate([[0], ends[:-1]])
+    da = np.zeros((b * n, cp), np.float32)
+    for d in rows:
+        da[d] = walk(d, starts[d], ends[d])
+    return torch.from_numpy(da[:, :c].reshape(b, n, c))
+
+
+# The kernel's index arithmetic (the mask's bit layout, the walk along a
+# row order, the padded width C = 40 at 64, a hub walked whole) emulated
+# in numpy gives the plain version's bits.
+@pytest.mark.parametrize("ordered", [False, True])
+def test_gather_reduce_backward_kernel_emulation(ordered):
+    b, n, c, k = 2, 200, 40, 6
+    a, idx, mx, cot = _bwd_case(b, n, c, k, 7, hub=3)
+    order = torch.arange(n, dtype=torch.int32).expand(b, n)
+    if ordered:
+        order = torch.from_numpy(np.stack([
+            np.random.default_rng(s).permutation(n) for s in range(b)
+        ]).astype(np.int32))
+    got = _emulate_k6b(a, idx, mx, *cot, order)
+    assert torch.equal(got, graph.gather_reduce_backward_plain(a, idx, mx,
+                                                               *cot))
