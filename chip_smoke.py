@@ -125,7 +125,9 @@ is not 0):
              split into the transpose, pass 1 and pass 2, and, with
              `--parent DIR`, the parent tree's K6b on the same inputs),
              the card's step against
-             the CPU's on one cloud with the same draws and graphs, the
+             the CPU's float64 step on one cloud with the same draws, the
+             card's graphs and its maxima (each max the CPU would pick
+             otherwise a near-tie), the
              gradient leaves whose bits differ between two identical steps
              (recorded), the checkpoint re-read giving the same forward; ms
              a step, shapes/s, peak memory;
@@ -145,7 +147,29 @@ is not 0):
              steps on 4 synthetic 10000-point clouds: finite losses, a fit
              term above 0 with matched segments, each step's launches (K1,
              K2, K3, K6, K6b), step 1 against the CPU on the card's graphs;
-             step ms, phase A / B / C ms, peak memory.
+             step ms, phase A / B / C ms, peak memory;
+  ms_bf16    the bf16 branch of K2/K2b (`config.ms_bf16`): the predict
+             phase's eval with ms_bf16 off and on (K2b bf16, then K3) on
+             the same inputs, both held to the JAX package's bars, shapes/s
+             of each and the share of labels that change; K2 bf16 at
+             (10000, 128) and K2b bf16 at (8, 10000, 128) and (8, 10000,
+             140 at 160) against the plain bf16 version by the float64
+             rule, timed beside attention in bf16 and their bound; the
+             serve phase's bundle with ms_bf16 set answering one clustered
+             request (K2 bf16) with the labels of the port's own
+             clustering;
+  pointnet2_iou  on the 8 eval clouds: `three_nn` on K1 at k = 3 against
+             the plain top-k, `miou_loss_edge` on the card against the CPU,
+             FPS to 1024 samples and `ball_query` equal to the CPU's,
+             `three_interpolate` and its gradient within 1e-5 of the CPU's;
+  resplit    `resplit_instances` on the headline's 8 instance maps on
+             the card (the bandwidth, K2 at E = 12 padded, K3), every K2
+             step and K3 call held to its plain version at the path's
+             inputs: at quantile 0.5 the CPU's partitions with the same
+             subsample draws; at 0.1 with two instances merged a cloud,
+             where they split, beside the CPU's and a run on float64 steps;
+  tools      `gen_vis` over the predict CLI's dumps, and `data.native`
+             built with g++ here, its writer byte for byte np.savetxt's.
 
 The line before the last is the `kernels` summary, the last line the
 device record. `--parent DIR` (an older checkout with the atomic K6b of
@@ -156,6 +180,7 @@ Without a CUDA device, or outside a checkout of the repo, it exits with
 an error and prints no result. nvcc's full register report is in
 `build.log` beside the built library.
 """
+import importlib
 import json
 import math
 import os
@@ -254,7 +279,7 @@ PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 BATCH, N_POINTS, K = 8, 10000, 64
-HEADLINE_REPS = 6   # timed headline batches (their spread is about 1%)
+HEADLINE_REPS = 3   # timed headline batches (their spread is about 1%)
 BIG_BATCH, BIG_POINTS = 2, 32768   # the matrix-free eval's clouds
 DEVICE = "cuda"
 PARENT_TREE = None  # --parent DIR: an older checkout whose K6b `train` times
@@ -810,24 +835,33 @@ def phase_kernels_slice2(models, x):
 
 
 def _wrappers():
+    """Each kernel's wrapper and the attribute that counts its launches
+    (K2 and K2b count their bf16 kernel apart, as "K2 bf16" and "K2b
+    bf16")."""
     from sednet_tpu_torch.ops import cuda_kernels as ck
     from sednet_tpu_torch.ops.flash_topk import flash_topk
     from sednet_tpu_torch.ops.fused_edgeconv import fused_edge_reductions
     from sednet_tpu_torch.ops.graph import gather_reduce, gather_reduce_backward
 
-    return {"K1": flash_topk, "K2": ck.mean_shift_step,
-            "K2b": ck.mean_shift_step_batched, "K3": ck.colmax,
-            "K4": fused_edge_reductions, "K5": ck.segsum_sorted_scan,
-            "K6": gather_reduce, "K6b": gather_reduce_backward}
+    return {"K1": (flash_topk, "launches"),
+            "K2": (ck.mean_shift_step, "launches"),
+            "K2b": (ck.mean_shift_step_batched, "launches"),
+            "K2 bf16": (ck.mean_shift_step, "launches_bf16"),
+            "K2b bf16": (ck.mean_shift_step_batched, "launches_bf16"),
+            "K3": (ck.colmax, "launches"),
+            "K4": (fused_edge_reductions, "launches"),
+            "K5": (ck.segsum_sorted_scan, "launches"),
+            "K6": (gather_reduce, "launches"),
+            "K6b": (gather_reduce_backward, "launches")}
 
 
 def reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {key: fn.launches for key, fn in _wrappers().items()}
+    return {key: getattr(fn, attr) for key, (fn, attr) in _wrappers().items()}
 
 
 def phase_headline(model, x, shapes):
@@ -1070,14 +1104,14 @@ def _device_profile(run, trace_name="predict_trace.json", stages=None):
 
 def phase_predict(name, models, batch, inputs, *, fused=False,
                   fold5drop=False, reps=3, cfg=None, ref=None, tol=None,
-                  trace="predict_trace.json"):
+                  trace="predict_trace.json", profiled=None):
     """predict_shapes on `batch` under bench.py's config (cfg: that config
     at the batch's cloud size), with the injected random inputs `inputs` =
     (x0s, sels), so that runs compare label for label. Launches, peak
     memory and metrics from the first run (held to ref within tol, by
     default the JAX numbers of the 10k clouds); shapes/s the median of
     `reps` more, each ended by a synchronize; then, on the index route
-    without fold5drop, one profiled run."""
+    without fold5drop (or as `profiled` says), one profiled run."""
     import numpy as np
     import torch
     from sednet_tpu_torch.predict import (make_forward,
@@ -1102,7 +1136,8 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     # the type model keeps the index route (K6) even with the fused encoder
-    need = ("K1", "K2b", "K3", "K6") + (("K4",) if fused else ())
+    need = (("K1", "K2b bf16" if cfg.ms_bf16 else "K2b", "K3", "K6")
+            + (("K4",) if fused else ()))
     for key in need:
         if counts[key] <= 0:
             raise AssertionError(f"{name} launched {key} no time")
@@ -1127,7 +1162,8 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
     med = float(np.median(ts))
     # one profiled run of the index route (the fused route's stages read
     # the same but for inst_forward; a profile costs 12-30 s of tracing)
-    profiled = not (fused or fold5drop)
+    if profiled is None:
+        profiled = not (fused or fold5drop)
     if profiled:
         profile = _device_profile(run, trace)
     x = torch.from_numpy(np.concatenate([batch["points"], batch["normals"]],
@@ -1163,7 +1199,7 @@ def phase_predict_all(models, shapes):
                                ("predict_fold5drop", False, True)):
         rec, labels, fwd = phase_predict(name, models, batch, (x0s, sels),
                                          fused=fused, fold5drop=fold5,
-                                         reps=1 if fold5 else 3)
+                                         reps=1 if fold5 else 2)
         out[name] = (rec, labels, fwd)
         if fused:
             x = torch.from_numpy(np.concatenate(
@@ -2687,12 +2723,13 @@ def phase_predict_bigcloud(models, shapes, inputs):
 TRAIN_SEED = 9            # the training clouds' stream (not EVAL_STREAM_SEED)
 TRAIN_SHAPES = 4          # clouds in each of the two training sets
 TRAIN_STEPS = 8           # two epochs of the two sets, mixed, in batches of 4
-TRAIN_LOSS_RTOL = 1e-4    # the card's step against the CPU's, same draws
-TRAIN_GRAD_RTOL = 1e-3    # per leaf, relative L2
+TRAIN_LOSS_RTOL = 1e-4    # the card's loss from the float64 step's
+TRAIN_GRAD_RTOL = 1e-3    # per leaf, relative L2 from the float64 step (or
+                          # twice the CPU float32 step's, where larger)
 TRAIN_CKPT_TOL = 1e-6     # the forward of the re-read checkpoint
 # the training path's launches in one step (one forward and its backward)
-TRAIN_PER_STEP = {"K1": 3, "K2": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0,
-                  "K6": 3, "K6b": 3}
+TRAIN_PER_STEP = {"K1": 3, "K2": 0, "K2b": 0, "K2 bf16": 0, "K2b bf16": 0,
+                  "K3": 0, "K4": 0, "K5": 0, "K6": 3, "K6b": 3}
 
 
 def train_cfg(preload):
@@ -2983,17 +3020,106 @@ class _Graphs:
         backbone.knn_indices, backbone.knn_indices_points_normals = self.saved
 
 
-def card_vs_cpu_step(model, cfg, batch):
+class _Maxima:
+    """Inside `with`, the maxima of the edge convolutions' gather-reduces
+    (`ops.graph.gather_reduce`, kernel K6, which `models.backbone`'s edge
+    convolutions reach through `edge_conv_factored`) are recorded in call
+    order, each as the mask (B, N, K, C) of the neighbours equal to their
+    row's max in a channel (the winner and its ties), with the table the
+    max read. Recording raises unless K6's max is the max of the gathered
+    values in every (row, channel). Given `replay`, those masks are taken
+    in place of this side's own: the max becomes the mean of the recorded
+    winners' values (the max itself where the two sides agree), whose
+    gradient splits the max's cotangent over them as the max's own does.
+    For each call, `flips` counts the (row, channel) pairs whose own
+    winners differ from the replayed ones, and raises unless each is a
+    near-tie: this side's gap from its own max to the best of the replayed
+    winners is at most twice the largest difference between the two sides'
+    values over that row's neighbours in that channel (`flip_gaps` keeps
+    the largest gap and the largest such bound). The replay runs the plain
+    gather, so it is for the CPU."""
+
+    def __init__(self, replay=None):
+        self.masks, self.tables, self.replay = [], [], replay
+        self.flips, self.flip_gaps = [], []
+
+    def __enter__(self):
+        import torch
+        from sednet_tpu_torch.ops import graph
+
+        self.saved = graph.gather_reduce
+
+        def call(a, idx, order=None):
+            if self.replay is None:
+                s, sq, mx = self.saved(a, idx, order)
+                g = graph.gather_neighbors(a.detach(), idx)
+                if not torch.equal(g.amax(2), mx.detach()):
+                    raise AssertionError(
+                        f"train: K6's max is not its row's max in call "
+                        f"{len(self.masks)}")
+                self.masks.append((g == mx.detach()[:, :, None, :]).cpu())
+                self.tables.append(a.detach().float().cpu())
+                return s, sq, mx
+            g = graph.gather_neighbors(a, idx)
+            call_no = len(self.masks)
+            mask = self.replay["masks"][call_no].to(a.device)
+            self.masks.append(mask)
+            gd = g.detach()
+            own = gd == gd.amax(2, keepdim=True)
+            flip = (own != mask).any(2)
+            self.flips.append(int(flip.sum()))
+            if self.flips[-1]:
+                b, n, c = flip.nonzero(as_tuple=True)
+                mine = gd[b, n, :, c]                        # (F, K)
+                theirs = graph.gather_neighbors(
+                    self.replay["tables"][call_no].to(gd), idx)[b, n, :, c]
+                won = torch.where(mask[b, n, :, c], mine, -torch.inf)
+                gap = mine.amax(1) - won.amax(1)
+                bound = 2.0 * (mine - theirs).abs().amax(1)
+                self.flip_gaps.append({"gap": float(gap.max()),
+                                       "bound": float(bound.max())})
+                if bool((gap > bound).any()):
+                    raise AssertionError(
+                        f"train: call {call_no}: "
+                        f"{int((gap > bound).sum())} of {self.flips[-1]} max "
+                        f"flips are no near-tie (largest gap "
+                        f"{float(gap.max())}, bound {float(bound.max())})")
+            cnt = mask.sum(2, dtype=a.dtype)
+            return (g.sum(2), (g * g).sum(2),
+                    torch.where(mask, g, 0.0).sum(2) / cnt)
+
+        # K6's wrapper counts its launches on the function of that name
+        call.launches = self.saved.launches
+        graph.gather_reduce = call
+        return self
+
+    def __exit__(self, *exc):
+        from sednet_tpu_torch.ops import graph
+
+        self.saved.launches = graph.gather_reduce.launches
+        graph.gather_reduce = self.saved
+
+
+def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
     """One step's loss and gradients for the first cloud of `batch` on the
-    card (K1, K6, K6b) and on the CPU (the plain versions), from the same
-    parameters and the same triplet draws. Held to TRAIN_LOSS_RTOL and
-    TRAIN_GRAD_RTOL: the CPU step on the card's three kNN graphs, so that
-    the two differ by the card's arithmetic (K6, K6b, the dense layers)
-    alone. Printed beside it: the CPU step on its own graphs (the plain
-    top-k), where K1's TF32 split swaps near-tie neighbours in a few rows,
-    which moves those rows' maxima and, through them, the global max's
-    argmax in a few of its 1024 channels; and the rows of each graph whose
-    neighbour set differs between the two."""
+    card (K1, K6, K6b) and on the CPU in float32 and in float64, from the
+    same parameters and the same triplet draws, the CPU on the card's
+    discrete choices: its three kNN graphs (`_Graphs`) and, in each edge
+    convolution, the neighbours that win each row's max (`_Maxima`, which
+    also holds K6's max to the max of its gathered values). So the sides
+    differ by their arithmetic alone; where a max is a near-tie, the card's
+    rounding and the CPU's may pick different neighbours, which moves the
+    max's cotangent to another row (`max_flips`: the CPU float32 side's own
+    winners against the card's, each held to be a near-tie, see
+    `_Maxima`). The loss is held to the float64 step's within
+    TRAIN_LOSS_RTOL; each gradient leaf within TRAIN_GRAD_RTOL, or within
+    twice the CPU float32 step's own distance from it where that is
+    larger, the rule of `e2e_card_vs_cpu` (either float32 side can be the
+    one far from float64). With own_graphs
+    (`scripts/probe_train_check.py`), printed beside it: the CPU step on
+    its own graphs and maxima (the plain top-k), where K1's TF32 split
+    swaps near-tie neighbours in a few rows; and the rows of each graph
+    whose neighbour set differs between the two."""
     import copy
 
     import torch
@@ -3005,9 +3131,9 @@ def card_vs_cpu_step(model, cfg, batch):
     draws = sample_draws(one["labels"], TripletConfig(
         margin=cfg.triplet_margin, max_segments=cfg.ms_max_clusters),
         torch.Generator().manual_seed(TRAIN_SEED))
-    cpu_model = copy.deepcopy(model).cpu()
 
-    def run(m, dev, replay=None):
+    def run(dev, replay=None, dtype=torch.float32):
+        m = copy.deepcopy(model).to(dev).to(dtype)
         m.zero_grad(set_to_none=True)
         seen = {}   # the encoder's features and its global max's argmax
         hooks = [m.encoder.register_forward_hook(
@@ -3015,41 +3141,67 @@ def card_vs_cpu_step(model, cfg, batch):
                  m.encoder.gn_mlp1.register_forward_hook(
                      lambda mod, i, o: seen.update(
                          argmax=o.detach().relu().argmax(1).cpu()))]
-        with _Graphs(replay) as graphs:
-            total, _ = T.make_loss_fn(m, cfg)(
-                {k: v.to(dev) for k, v in one.items()}, draws)
+        b = {k: v.to(dev, dtype if v.is_floating_point() else v.dtype)
+             for k, v in one.items()}
+        with _Graphs(replay and replay["graphs"]) as graphs, \
+                _Maxima(replay and replay["maxima"]) as maxima:
+            total, _ = T.make_loss_fn(m, cfg)(b, draws)
             total.backward()
         for h in hooks:
             h.remove()
         grads = {k: p.grad.detach().cpu().double()
                  for k, p in m.named_parameters()}
-        m.zero_grad(set_to_none=True)
-        return (float(total.detach()), grads, [g.cpu() for g in graphs.graphs],
-                seen)
+        return {"loss": float(total.detach()), "grads": grads,
+                "graphs": [g.cpu() for g in graphs.graphs],
+                "maxima": {"masks": maxima.masks, "tables": maxima.tables},
+                "flips": maxima.flips, "flip_gaps": maxima.flip_gaps,
+                "seen": seen}
 
-    def compare(card, cpu):
-        rel = {k: float((card[1][k] - cpu[1][k]).norm()
-                        / cpu[1][k].norm().clamp_min(1e-30)) for k in card[1]}
-        worst = max(rel, key=rel.get)
-        return {"loss": card[0], "cpu_loss": cpu[0],
-                "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
-                "grad_rel_err_max": rel[worst], "grad_worst_leaf": worst,
-                "grad_rel_err_median": sorted(rel.values())[len(rel) // 2],
+    def rel(a, b):
+        return {k: float((a["grads"][k] - b["grads"][k]).norm()
+                         / b["grads"][k].norm().clamp_min(1e-30))
+                for k in b["grads"]}
+
+    def versus(card, cpu):
+        vs = rel(card, cpu)
+        worst = max(vs, key=vs.get)
+        return {"loss_rel_err": abs(card["loss"] - cpu["loss"])
+                / abs(cpu["loss"]),
+                "grad_rel_err_max": vs[worst], "grad_worst_leaf": worst,
+                "grad_rel_err_median": sorted(vs.values())[len(vs) // 2],
                 "feats_max_abs_diff": float(
-                    (card[3]["feats"] - cpu[3]["feats"]).abs().max()),
+                    (card["seen"]["feats"] - cpu["seen"]["feats"]).abs().max()),
                 "global_max_argmax_flips": int(
-                    (card[3]["argmax"] != cpu[3]["argmax"]).sum())}
+                    (card["seen"]["argmax"] != cpu["seen"]["argmax"]).sum())}
 
-    card = run(model, DEVICE)
-    rec = compare(card, run(cpu_model, "cpu", replay=card[2]))
-    own = run(cpu_model, "cpu")
-    rec["cpu_own_graphs"] = {
-        **compare(card, own),
-        "graph_rows_differing": [
-            int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
-            for a, b in zip(card[2], own[2])]}
-    if (rec["loss_rel_err"] > TRAIN_LOSS_RTOL
-            or rec["grad_rel_err_max"] > TRAIN_GRAD_RTOL):
+    card = run(DEVICE)
+    cpu = run("cpu", replay=card)
+    exact = run("cpu", replay=card, dtype=torch.float64)
+    card_f64, cpu_f64 = rel(card, exact), rel(cpu, exact)
+    allowed = {k: max(TRAIN_GRAD_RTOL, 2.0 * cpu_f64[k]) for k in card_f64}
+    over = {k: (card_f64[k], allowed[k]) for k in card_f64
+            if card_f64[k] > allowed[k]}
+    worst = sorted(card_f64, key=lambda k: card_f64[k] / allowed[k])[-3:]
+    loss_f64 = {name: abs(side["loss"] - exact["loss"]) / abs(exact["loss"])
+                for name, side in (("card", card), ("cpu_f32", cpu))}
+    rec = {"loss": card["loss"], "cpu_loss": cpu["loss"],
+           "f64_loss": exact["loss"], "loss_vs_f64": loss_f64,
+           "loss_allowed": TRAIN_LOSS_RTOL, **versus(card, cpu),
+           "max_flips": cpu["flips"], "max_flips_f64": exact["flips"],
+           "flip_gaps": cpu["flip_gaps"], "flip_gaps_f64": exact["flip_gaps"],
+           "card_vs_f64_max": max(card_f64.values()),
+           "cpu_f32_vs_f64_max": max(cpu_f64.values()),
+           "worst_vs_f64": {k: {"card": card_f64[k], "cpu_f32": cpu_f64[k],
+                                "allowed": allowed[k]} for k in worst},
+           "over_allowed": over}
+    if own_graphs:
+        own = run("cpu")
+        rec["cpu_own_graphs"] = {
+            **versus(card, own),
+            "graph_rows_differing": [
+                int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(card["graphs"], own["graphs"])]}
+    if loss_f64["card"] > TRAIN_LOSS_RTOL or over:
         raise AssertionError(f"train: the card's step against the CPU's {rec}")
     return rec
 
@@ -3481,8 +3633,9 @@ E2E_GRAD_RTOL = 1e-3      # per leaf, relative L2 (see e2e_card_vs_cpu)
 # one e2e step's launches: two forwards (phase A's and the step's), 5
 # mean-shift steps and 3 NMS column-maxes a shape in phase A (the
 # bandwidth's k of 1250 takes the dense path, not K1), one backward
-E2E_PER_STEP = {"K1": 6, "K2": 5 * E2E_SHAPES, "K2b": 0,
-                "K3": 3 * E2E_SHAPES, "K4": 0, "K5": 0, "K6": 6, "K6b": 3}
+E2E_PER_STEP = {"K1": 6, "K2": 5 * E2E_SHAPES, "K2b": 0, "K2 bf16": 0,
+                "K2b bf16": 0, "K3": 3 * E2E_SHAPES, "K4": 0, "K5": 0,
+                "K6": 6, "K6b": 3}
 
 
 def e2e_card_vs_cpu(model, cfg, params0, args):
@@ -3652,6 +3805,618 @@ def phase_parsenet_e2e(models, card):
     return {k: sum(s["launches"][k] for s in steps) for k in E2E_PER_STEP}
 
 
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+IOU_CPU_SHAPES = 1        # miou_loss_edge's CPU side: its plain top-k sorts
+RESPLIT_TIE = 1e-5        # K3's pick this close to the best: a near-tie
+RESPLIT_MERGED_QUANTILE = 0.1   # the pass whose instances really split
+# exps a second on the SFUs: 16 a cycle an SM, 132 SMs, the 1.98 GHz boost
+EXP_RATE = 132 * 16 * 1.98e9
+
+
+def bf16_bound(b, n, e, e_run):
+    """The bound of K2/K2b's bf16 branch, the largest of: the two products'
+    4 b n^2 e flops over the dense bf16 peak, the b n^2 exps over the SFUs'
+    rate (both operations), and the float32 inputs and output once over
+    the memory rate; `bound_run_width_ms` is the products at the padded
+    width the kernel runs."""
+    t = {"products": 4 * b * n * n * e / PEAK_BF16_FLOPS,
+         "exps": b * n * n / EXP_RATE,
+         "bytes": 4 * 3 * b * n * e / PEAK_BYTES}
+    by = max(t, key=t.get)
+    return {"bound_ms": 1e3 * t[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_parts_ms": {k: 1e3 * v for k, v in t.items()},
+            "bound_run_width_ms": 4e3 * b * n * n * e_run / PEAK_BF16_FLOPS}
+
+
+def check_k2_bf16(case, x_e, bw):
+    """K2's (one shape, x_e (1, N, E)) or K2b's (a batch) bf16 kernel on
+    x_e padded once to the kernel width, as the loops pad it, against the
+    plain bf16 version at E by `f64_errors`' rule: against the same
+    function in float64 on the bf16-rounded inputs, at most twice the
+    plain version's error. Timed: the call, 20 calls' device time, the
+    plain version, attention in bf16 (the same normalised kernel-weighted
+    mean) as the yardstick, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+
+    b, n, e = x_e.shape
+    xp = ck.kernel_width(x_e)
+    inv_b2 = 1.0 / (bw * bw)
+    if b == 1:
+        def fn():
+            return ck.mean_shift_step(xp[0], xp[0], bw[0], bf16=True)[None]
+    else:
+        def fn():
+            return ck.mean_shift_step_batched(xp, xp, bw, bf16=True)
+
+    out = fn()
+    got = out[..., :e]
+    plain = ck.mean_shift_step_plain(x_e, x_e, inv_b2, bf16=True)
+    exact = ck.mean_shift_step_plain(x_e.double(), x_e.double(),
+                                     inv_b2.double(), bf16=True)
+    torch.cuda.synchronize()
+    if float(out[..., e:].abs().sum()) != 0.0:
+        raise AssertionError(f"{case}: padding columns not zero")
+    xb = x_e.to(torch.bfloat16)
+    qb = (x_e * inv_b2[:, None, None]).to(torch.bfloat16)
+
+    def sdpa():
+        return F.normalize(F.scaled_dot_product_attention(
+            qb[:, None], xb[:, None], xb[:, None], scale=1.0)[:, 0].float(),
+            dim=-1, eps=1e-12)
+
+    rec = {"case": case, "shape": [b, n, e], "run_width": xp.shape[-1],
+           "max_abs_err": float((got - plain).abs().max()),
+           "vs": "the plain bf16 version (held by the float64 rule)",
+           **f64_errors(case, got, plain, exact),
+           "ms": time_ms(fn), "device_ms": burst_ms(fn),
+           "plain_ms": time_ms(lambda: ck.mean_shift_step_plain(
+               x_e, x_e, inv_b2, bf16=True), reps=3),
+           "library_ms": time_ms(sdpa),
+           "library": "scaled_dot_product_attention on bf16 inputs",
+           **bf16_bound(b, n, e, xp.shape[-1])}
+    del out, got, plain, exact
+    return rec
+
+
+def _bf16_server(bundle, x_np):
+    """The serve phase's bundle with ms_bf16 set in its config snapshot,
+    served in this process (`BundleServer`, clustering on): one clustered
+    request of one cloud, its launches, and its labels against the port's
+    own clustering (`serve.cluster_shape` under the same config) with the
+    server's generator."""
+    import shutil
+
+    import torch
+    from sednet_tpu_torch import serve
+
+    bdir = bundle + "_bf16"
+    shutil.rmtree(bdir, ignore_errors=True)
+    shutil.copytree(bundle, bdir)
+    with open(os.path.join(bdir, "meta.json")) as f:
+        meta = json.load(f)
+    meta["config"]["ms_bf16"] = True
+    with open(os.path.join(bdir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    srv = serve.BundleServer(bdir, cluster=True, device=DEVICE)
+    reset_counts()
+    t0 = time.time()
+    out = srv.predict([x_np[0]])[0]
+    torch.cuda.synchronize()
+    request_ms = 1e3 * (time.time() - t0)
+    counts = read_counts()
+    xt = torch.from_numpy(srv._pad([x_np[0]])[0]).to(DEVICE)
+    with torch.no_grad():
+        emb = srv.fns["inst_model"](xt)["embedding"][0]
+    gen = serve.request_generators(torch.Generator().manual_seed(0), 1)[0]
+    own = serve.cluster_shape(emb, xt[0, :, :3], xt[0, :, 3:6], srv.cfg, gen)
+    rec = {"bundle": os.path.relpath(bdir, ROOT), "ms_bf16": srv.cfg.ms_bf16,
+           "request_ms": request_ms, "launches": counts,
+           "points": len(out["instances"]),
+           "num_instances": out["num_instances"],
+           "instances_equal_own": out["instances"] == own.labels.tolist()}
+    rec["ok"] = (rec["instances_equal_own"] and counts["K2 bf16"] > 0
+                 and counts["K2"] == 0 and rec["points"] == N_POINTS
+                 and rec["num_instances"] >= 1)
+    del srv
+    return rec
+
+
+def phase_ms_bf16(models, shapes, x, emb):
+    """`ms_bf16`: the reference-default eval (bench.py's config 2, 8 x
+    10000) with ms_bf16 on and off on the same inputs (K2b bf16 then K3;
+    the f32 run K2b), each held to the JAX package's bars across keys;
+    K2 bf16 at (10000, 128) and K2b bf16 at (8, 10000, 128) and (8, 10000,
+    140 at 160) against the plain bf16 version; the serve phase's bundle
+    with ms_bf16 answering one clustered request."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
+    from sednet_tpu_torch.predict import HEADLINE
+
+    batch = {k: np.stack([s[k] for s in shapes])
+             for k in ("points", "normals", "labels", "prim")}
+    gen = torch.Generator().manual_seed(3)
+    x0s = [torch.randn((N_POINTS, 12), generator=gen) for _ in range(BATCH)]
+    sels = [torch.randperm(N_POINTS, generator=gen)[:5000]
+            for _ in range(BATCH)]
+    runs = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        rec, labels, _ = phase_predict(
+            f"ms_bf16/{name}", models, batch, (x0s, sels), reps=1,
+            cfg=predict_cfg(ms_bf16=bf16), profiled=False)
+        runs[name] = (rec, labels)
+    f32, b16 = runs["f32"][0], runs["bf16"][0]
+    ari = [_ari(a, b) for a, b in zip(runs["f32"][1], runs["bf16"][1])]
+
+    ns = HEADLINE.ms_num_samples
+    bw = torch.stack([torch.clamp_min(compute_bandwidth(
+        emb[i], ns, np.float32(HEADLINE.ms_quantile),
+        generator=torch.Generator().manual_seed(i)), 0.003)
+        for i in range(BATCH)])
+    emb_e, esels = eval_subsamples(models, x)
+    bw_e = torch.stack([torch.clamp_min(compute_bandwidth(
+        emb_e[i], ns, np.float32(HEADLINE.ms_quantile), sel=esels[i]), 0.003)
+        for i in range(BATCH)])
+    k2 = [check_k2_bf16("K2 bf16, one shape E=128", emb[:1], bw[:1])]
+    k2b = [check_k2_bf16("K2b bf16 E=128", emb, bw),
+           check_k2_bf16("K2b bf16, enriched E=140", emb_e, bw_e)]
+    del emb_e
+    server = _bf16_server(os.path.join(ROOT, "build", "serve_smoke",
+                                       "bundle"), x.cpu().numpy())
+    ok = (f32["ok"] and b16["ok"] and server["ok"]
+          and b16["launches"]["K2b"] == 0 and b16["launches"]["K2"] == 0)
+    keep = ("ok", "shapes_per_s", "batch_s_median", "inst_iou", "type_iou",
+            "inst_recall", "launches", "per_shape", "peak_mem_gib")
+    emit({"phase": "ms_bf16", "ok": ok,
+          "bf16": {k: b16[k] for k in keep}, "f32": {k: f32[k] for k in keep},
+          "ref": b16["ref"], "tol": b16["tol"],
+          "ari_bf16_vs_f32": ari,
+          "K2 bf16": k2, "K2b bf16": k2b, "server": server})
+    if not ok:
+        raise AssertionError(f"ms_bf16: f32 {f32['ok']}, bf16 {b16['ok']} "
+                             f"{b16['launches']}, server {server}")
+    return {"K2 bf16": k2, "K2b bf16": k2b}, server["launches"], b16[
+        "launches"]
+
+
+def phase_pointnet2_iou(models, x, labels):
+    """`pointnet2_iou` on the eval batch (8 x 10000): `three_nn` through K1
+    at k = 3 against the plain top-k (no set differs outside a near-tie);
+    `miou_loss_edge` on the card against the CPU on the same inputs (the
+    headline's instance maps one-hot, the inst model's edge logits; the
+    CPU on the first IOU_CPU_SHAPES clouds, whose plain top-k sorts every
+    row on the host); FPS to 1024 samples and `ball_query` (radius 0.05,
+    32 samples) equal to the CPU's; `three_interpolate` of the embedding
+    from the samples back to every point, forward and gradient within
+    1e-5 relative of the CPU's on the same indices and weights."""
+    import torch
+    from sednet_tpu_torch.losses.iou_loss import miou_loss_edge
+    from sednet_tpu_torch.ops import pointnet2 as P
+    from sednet_tpu_torch.ops.flash_topk import compare_with_plain
+    from sednet_tpu_torch.predict import forward
+
+    xyz = x[..., :3].contiguous()
+    k1 = check_topk(f"three_nn k=3 ({BATCH} shapes)", xyz, xyz, 3)
+    emb, _, edge = forward(models["inst"], x)
+    scores = torch.nn.functional.one_hot(labels.long(), 50).float().permute(
+        0, 2, 1).contiguous()
+    reset_counts()
+    t0 = time.time()
+    dist, idx = P.three_nn(xyz, xyz)
+    loss = miou_loss_edge(xyz, scores, edge)
+    fps = P.furthest_point_sampling(xyz, 1024)
+    centers = P.gather_operation(xyz, fps)
+    ball, count = P.ball_query(centers, xyz, radius=0.05, n_sample=32)
+    d3, i3 = P.three_nn(xyz, centers.contiguous())
+    w3 = P.interpolation_weights(d3)
+    feats = P.gather_operation(emb, fps).detach().requires_grad_()
+    w3 = w3.detach().requires_grad_()
+    interp = P.three_interpolate(feats, i3, w3)
+    cot = torch.randn(interp.shape, generator=torch.Generator().manual_seed(
+        5)).to(DEVICE)
+    (interp * cot).sum().backward()
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    counts = read_counts()
+    cmp = compare_with_plain(xyz, xyz, 3, idx, dist * dist)
+
+    c = IOU_CPU_SHAPES
+    cpu_nn = P.three_nn(xyz[:c].cpu(), xyz[:c].cpu())[1]
+    cpu_loss = float(miou_loss_edge(xyz[:c].cpu(), scores[:c].cpu(),
+                                    edge[:c].cpu()))
+    card_loss_c = float(miou_loss_edge(xyz[:c], scores[:c], edge[:c]))
+    # a row whose nearest other point differs changes its shape's
+    # intersection and union by at most one each, so its IoU by at most
+    # 2 / (union - 1); with none, the losses agree to rounding
+    second = (idx[:c, :, 1].cpu() != cpu_nn[..., 1]).sum(1).double()
+    inst = scores[:c].argmax(1)
+    bound = (torch.gather(inst, 1, idx[:c, :, 1]) != inst).double()
+    epred = (edge[:c].argmax(-1) == 1).double()
+    union = (bound.sum(1) + epred.sum(1) - (bound * epred).sum(1)).cpu()
+    loss_tol = 1e-6 + float((2.0 * second / (union - 1.0).clamp_min(1.0))
+                            .sum()) / c
+    loss_ok = abs(card_loss_c - cpu_loss) <= loss_tol
+
+    t0 = time.time()
+    fps_cpu = P.furthest_point_sampling(xyz.cpu(), 1024)
+    ball_cpu, count_cpu = P.ball_query(centers.cpu(), xyz.cpu(), radius=0.05,
+                                       n_sample=32)
+    feats_c = feats.detach().cpu().requires_grad_()
+    w3_c = w3.detach().cpu().requires_grad_()
+    interp_c = P.three_interpolate(feats_c, i3.cpu(), w3_c)
+    (interp_c * cot.cpu()).sum().backward()
+    cpu_s = time.time() - t0
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-30))
+
+    rec = {"phase": "pointnet2_iou", "K1 k=3": k1,
+           "three_nn": {k: cmp[k] for k in (
+               "bad_rows", "tie_rows", "swapped_rows", "rows", "max_abs_err",
+               "nbr_err", "tol")},
+           "launches": counts, "card_s": card_s, "cpu_s": cpu_s,
+           "miou_loss_edge": {"loss": float(loss), "card_first": card_loss_c,
+                              "cpu_first": cpu_loss, "cpu_shapes": c,
+                              "nearest_differs": second.tolist(),
+                              "tol": loss_tol},
+           "fps_equal": bool(torch.equal(fps.cpu(), fps_cpu)),
+           "ball_query_equal": bool(torch.equal(ball.cpu(), ball_cpu)
+                                    and torch.equal(count.cpu(), count_cpu)),
+           "ball_count_mean": float(count.float().mean()),
+           "three_interpolate_rel": {
+               "forward": rel(interp.detach(), interp_c.detach()),
+               "grad_features": rel(feats.grad, feats_c.grad),
+               "grad_weights": rel(w3.grad, w3_c.grad), "tol": 1e-5}}
+    rec["ok"] = (cmp["bad_rows"] == 0 and loss_ok and rec["fps_equal"]
+                 and rec["ball_query_equal"] and counts["K1"] == 3
+                 and all(v <= 1e-5 for k, v in
+                         rec["three_interpolate_rel"].items() if k != "tol"))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"pointnet2_iou: {rec}")
+    return counts, k1
+
+
+def _moved_rows(a, b):
+    """The rows of labeling a whose cluster lies elsewhere in labeling b:
+    the clusters of the two matched one to one where they share the most
+    rows (Hungarian on their overlaps), and the rows outside the matched
+    pairs. None where the two split alike, whatever ids they allot."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    ua, ia = np.unique(a, return_inverse=True)
+    ub, ib = np.unique(b, return_inverse=True)
+    table = np.zeros((len(ua), len(ub)), np.int64)
+    np.add.at(table, (ia, ib), 1)
+    r, c = linear_sum_assignment(-table)
+    match = np.full(len(ua), -1)
+    match[r] = c
+    return np.nonzero(match[ia] != ib)[0]
+
+
+class _HeldMeanShift:
+    """Inside `with`, every K2 step and K3 column-max that
+    `cluster.mean_shift` runs (its `mean_shift_step` and `colmax`) is held,
+    at the inputs the path gave it, to its plain version on the same
+    inputs on the card. A K2 step within 1e-5 of the float32 plain
+    version, and the steps together by `f64_errors`' rule (`check`): the
+    largest float64 error of the card's steps at most twice the largest of
+    the plain version's on the same inputs. Step by step that ratio is
+    noise: at E = 12 both err by about an ulp of the output (one step on an
+    H100 read 8.3e-8 against 3.9e-8), so it is recorded
+    (`k2_worst_step_ratio`, `k2_steps_over_2x`), not held. A K3 call by
+    its picks: where K3's pick differs from the plain version's, the plain
+    version's score of K3's pick must lie within RESPLIT_TIE of its own
+    best (a near-tie; a pick outside the threshold counts as one if its
+    chord lies within RESPLIT_TIE of it), and the best scores within
+    RESPLIT_TIE of each other where they differ outside such ties. Raises
+    at the first call that fails. The three K3 calls of an NMS
+    (membership, the centres' vote, the final assignment) are counted
+    apart in `ties`."""
+
+    PASSES = ("membership", "vote", "assignment")
+
+    def __init__(self):
+        self.steps, self.k2_err, self.k2_f64 = 0, 0.0, []
+        self.colmax_calls = 0
+        self.ties = dict.fromkeys(self.PASSES, 0)
+
+    def __enter__(self):
+        import torch
+        from sednet_tpu_torch.ops import cuda_kernels as ck
+
+        # the module, which the package shadows with its function
+        self.module = importlib.import_module(
+            "sednet_tpu_torch.cluster.mean_shift")
+        self.saved = (self.module.mean_shift_step, self.module.colmax)
+        step, colmax = self.saved
+
+        def held_step(new_x, x, bw, bf16=False):
+            got = step(new_x, x, bw, bf16=bf16)
+            inv_b2 = ck._inv_b2(bw, x).reshape(1)
+            plain = ck.mean_shift_step_plain(new_x[None], x[None], inv_b2)[0]
+            exact = ck.mean_shift_step_plain(new_x.double()[None],
+                                             x.double()[None],
+                                             inv_b2.double())[0]
+            err = float((got - plain).abs().max())
+            if err > 1e-5:
+                raise AssertionError(f"resplit: K2 step {self.steps}: max abs "
+                                     f"error {err} > 1e-5")
+            self.k2_f64.append(tuple(float((t.double() - exact).abs().max())
+                                     for t in (got, plain)))
+            self.steps += 1
+            self.k2_err = max(self.k2_err, err)
+            return got
+
+        def held_colmax(rows, cols, bias, thresh, gain):
+            best, idx = colmax(rows, cols, bias, thresh, gain)
+            pb, pi = ck.colmax_plain(rows, cols, bias, thresh, gain)
+
+            def pick(i):   # the plain arithmetic's chord and score of a pick
+                sim = (rows * cols[i.long()]).sum(1)
+                return 2.0 - 2.0 * sim, gain * sim + bias[i.long()]
+
+            chord, mine = pick(idx)
+            edge = (chord - thresh).abs() <= RESPLIT_TIE
+            edge_plain = (pick(pi)[0] - thresh).abs() <= RESPLIT_TIE
+            # K3's pick scores within RESPLIT_TIE of the best, inside the
+            # threshold or at its edge; or one side found no column where
+            # the other's pick lies at the threshold's edge
+            tie = (((chord < thresh) | edge) & (mine >= pb - RESPLIT_TIE)) | (
+                (~torch.isfinite(pb) & edge)
+                | (~torch.isfinite(best) & edge_plain))
+            moved = idx != pi
+            close = (best == pb) | torch.isclose(best, pb, rtol=0.0,
+                                                 atol=RESPLIT_TIE)
+            bad = int(((moved | ~close) & ~tie).sum())
+            name = self.PASSES[self.colmax_calls % 3]
+            if bad:
+                raise AssertionError(
+                    f"resplit: K3 ({name} pass) picked {bad} rows that are "
+                    f"no near-tie of its plain version")
+            self.ties[name] += int((moved | ~close).sum())
+            self.colmax_calls += 1
+            return best, idx
+
+        self.module.mean_shift_step = held_step
+        self.module.colmax = held_colmax
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mean_shift_step, self.module.colmax = self.saved
+
+    def check(self):
+        """`f64_errors`' rule over the steps held so far; the record."""
+        mine = max((k for k, _ in self.k2_f64), default=0.0)
+        plain = max((p for _, p in self.k2_f64), default=0.0)
+        if mine > 2.0 * plain:
+            raise AssertionError(f"resplit: K2's steps: float64 error {mine} "
+                                 f"above twice the plain version's {plain}")
+        ratios = [k / max(p, 1e-30) for k, p in self.k2_f64]
+        return {"k2_steps": self.steps, "k2_max_abs_err": self.k2_err,
+                "k2_f64_err": mine, "k2_plain_f64_err": plain,
+                "k2_worst_step_ratio": max(ratios, default=0.0),
+                "k2_steps_over_2x": sum(r > 2.0 for r in ratios),
+                "k3_calls": self.colmax_calls, "k3_near_tie_rows": self.ties}
+
+
+class _Float64Steps:
+    """Inside `with`, `cluster.mean_shift`'s steps are the plain version's
+    in float64, rounded to float32 after each: a rounding of the same
+    algorithm, to show how far the clustering moves for rounding alone."""
+
+    def __enter__(self):
+        from sednet_tpu_torch.ops import cuda_kernels as ck
+
+        # the module, which the package shadows with its function
+        self.module = importlib.import_module(
+            "sednet_tpu_torch.cluster.mean_shift")
+        self.saved = self.module.mean_shift_step
+
+        def step(new_x, x, bw, bf16=False):
+            inv_b2 = ck._inv_b2(bw, x).reshape(1).double()
+            out = ck.mean_shift_step_plain(new_x.double()[None],
+                                           x.double()[None], inv_b2)
+            return out[0].float()
+
+        self.module.mean_shift_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mean_shift_step = self.saved
+
+
+def _resplit_pass(pts, nrm, labels, types, gen, quantile, sensitivity=False):
+    """resplit_instances at `quantile` on each shape's instance map on the
+    card, timed; again on the card with every K2 step and K3 call held to
+    its plain version (`_HeldMeanShift`); and on the CPU with the same
+    subsample draws (one a split candidate). Recorded a shape: the
+    partitions' rows in another cluster (`_moved_rows`) between the card
+    and the CPU, and with `sensitivity` between each of them and the same
+    run on the card on float64 steps (`_Float64Steps`). Returns (records,
+    the holds' record, card s, CPU s, the launches of the timed runs)."""
+    import numpy as np
+    import torch
+    from sednet_tpu_torch.postproc.inst_cluster import (resplit_instances,
+                                                        subsample_size)
+
+    shapes, card_s, cpu_s, counts = [], 0.0, 0.0, {}
+    held = _HeldMeanShift()
+    for i in range(labels.shape[0]):
+        big = [int(p) for p in np.unique(labels[i])
+               if (labels[i] == p).sum() >= 0.15 * labels.shape[1]]
+        sels = {}
+        for p in big:
+            rows = int((labels[i] == p).sum())
+            sels[p] = torch.randperm(rows, generator=gen)[
+                :min(subsample_size(rows), rows)]
+
+        def run(dev):
+            return resplit_instances(pts[i], nrm[i], labels[i], types[i],
+                                     quantile=quantile, device=dev, sels=sels)
+
+        reset_counts()
+        t0 = time.time()
+        card = run(DEVICE)
+        torch.cuda.synchronize()
+        card_s += time.time() - t0
+        for k, v in read_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        with held:
+            held_card = run(DEVICE)
+        t0 = time.time()
+        cpu = run("cpu")
+        cpu_s += time.time() - t0
+        rec = {"candidates": big,
+               "instances_before": int(len(np.unique(labels[i]))),
+               "instances_after": int(len(np.unique(card))),
+               "repeat_equal": bool((held_card == card).all()),
+               "ids_equal": bool((card == cpu).all()),
+               "rows_moved": int(len(_moved_rows(card, cpu)))}
+        if sensitivity:
+            with _Float64Steps():
+                f64 = run(DEVICE)
+            rec.update(instances_after_cpu=int(len(np.unique(cpu))),
+                       instances_after_f64_steps=int(len(np.unique(f64))),
+                       rows_moved_card_vs_f64_steps=int(len(
+                           _moved_rows(card, f64))),
+                       rows_moved_cpu_vs_f64_steps=int(len(
+                           _moved_rows(cpu, f64))))
+        shapes.append(rec)
+    return shapes, held.check(), card_s, cpu_s, counts
+
+
+def phase_resplit(model, x):
+    """`resplit`: `resplit_instances` on the headline's 8 predicted instance
+    maps (`segment_batch`) with their points, normals and predicted types,
+    on the card (the bandwidth, 25 K2 steps at E = 12 padded to the kernel
+    width, K3's NMS), every K2 step and K3 call held to its plain version
+    at the inputs the path gave it (`_HeldMeanShift`), in two passes:
+    quantile 0.5, where the card's partitions must be the CPU's with the
+    same subsample draws; and RESPLIT_MERGED_QUANTILE on the same maps with
+    each cloud's two largest instances merged, where instances split. There
+    the card and the CPU part ways on a few clouds, as the CPU does from
+    itself on float64 steps: recorded beside each other, not held, since
+    rounding alone moves a split (every K2 and K3 call is held). Timed: K2
+    at E = 12 on the largest candidate, beside its plain version,
+    attention as the yardstick and its bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+    from sednet_tpu_torch.postproc.inst_cluster import instance_features
+    from sednet_tpu_torch.predict import segment_batch
+
+    labels, types = segment_batch(model, x,
+                                  generator=torch.Generator().manual_seed(6))
+    pts = x[..., :3].cpu().numpy()
+    nrm = x[..., 3:6].cpu().numpy()
+    labels, types = labels.cpu().numpy(), types.cpu().numpy()
+    shapes, held, card_s, cpu_s, counts = _resplit_pass(
+        pts, nrm, labels, types, torch.Generator().manual_seed(7), 0.5)
+    merged = labels.copy()
+    for i in range(BATCH):
+        ids, sizes = np.unique(labels[i], return_counts=True)
+        keep, drop = ids[np.argsort(-sizes, kind="stable")[:2]]
+        merged[i][labels[i] == drop] = keep
+    m_shapes, m_held, m_card_s, m_cpu_s, m_counts = _resplit_pass(
+        pts, nrm, merged, types, torch.Generator().manual_seed(7),
+        RESPLIT_MERGED_QUANTILE, sensitivity=True)
+
+    split = [(i, p) for i in range(BATCH) for p in shapes[i]["candidates"]]
+    if not split:
+        raise AssertionError("resplit: no instance above the ratio")
+    sizes = [int((labels[i] == p).sum()) for i, p in split]
+    i, p = split[int(np.argmax(sizes))]
+    f12 = torch.from_numpy(instance_features(
+        pts[i], nrm[i], types[i], labels[i] == p)).to(DEVICE)
+    f = ck.kernel_width(f12)
+    n, e = f12.shape
+    inv_b2 = torch.full((1,), 100.0, device=DEVICE)   # bandwidth 0.1
+    k2 = {"case": f"resplit candidate ({n},{e}) at {f.shape[-1]}",
+          "shape": [1, n, e], "run_width": f.shape[-1],
+          "launches": counts["K2"] + m_counts["K2"],
+          "max_abs_err": max(held["k2_max_abs_err"], m_held["k2_max_abs_err"]),
+          "f64_err": max(held["k2_f64_err"], m_held["k2_f64_err"]),
+          "plain_f64_err": max(held["k2_plain_f64_err"],
+                               m_held["k2_plain_f64_err"]),
+          "ms": time_ms(lambda: ck.mean_shift_step(f, f, 0.1)),
+          "plain_ms": time_ms(lambda: ck.mean_shift_step_plain(
+              f12[None], f12[None], inv_b2)),
+          "library_ms": time_ms(lambda: F.normalize(
+              F.scaled_dot_product_attention(
+                  (f12 * 100.0)[None, None], f12[None, None],
+                  f12[None, None], scale=1.0)[0, 0], dim=-1, eps=1e-12)),
+          **split_bound(4 * n * n * e, n * n * (4 * e + 4), 4 * 3 * n * e)}
+    ok = (all(s["rows_moved"] == 0 for s in shapes)
+          and any(s["instances_after"] > s["instances_before"]
+                  for s in m_shapes)
+          and counts["K2"] > 0 and counts["K3"] > 0)
+    emit({"phase": "resplit", "ok": ok, "shapes": shapes, "held": held,
+          "candidate_points": sizes, "launches": counts, "card_s": card_s,
+          "cpu_s": cpu_s, "merged": {
+              "quantile": RESPLIT_MERGED_QUANTILE, "shapes": m_shapes,
+              "held": m_held, "launches": m_counts, "card_s": m_card_s,
+              "cpu_s": m_cpu_s},
+          "k2_e12": k2, "near_tie": RESPLIT_TIE})
+    if not ok:
+        raise AssertionError(f"resplit: {shapes} merged {m_shapes} "
+                             f"launches {counts}")
+    return counts, k2
+
+
+def phase_tools():
+    """`tools`: `gen_vis` over the predict CLI's dumps (build/predict_cli/
+    full): every shape's four coloured dumps; `data.native` built with g++
+    on this host into build/, its `savetxt_fast` rewriting each of those
+    arrays, byte for byte the files gen_vis wrote through np.savetxt, and
+    the integer label dumps the same way."""
+    import numpy as np
+    from sednet_tpu_torch import gen_vis
+    from sednet_tpu_torch.data import native
+
+    src = os.path.join(ROOT, "build", "predict_cli", "full")
+    t0 = time.time()
+    dst = gen_vis.gen_total_vis(src, workers=8)
+    vis_s = time.time() - t0
+    t0 = time.time()
+    native.build()
+    build_s = time.time() - t0
+    check = os.path.join(ROOT, "build", "tools_smoke")
+    os.makedirs(check, exist_ok=True)
+    differ, files = [], 0
+    for sid in range(BATCH):
+        arrays = gen_vis.gen_vis(src, sid)
+        for kind, arr in arrays.items():
+            path = os.path.join(check, f"{sid}_{kind}.txt")
+            native.savetxt_fast(path, arr, fmt="%0.4f", delimiter=";")
+            files += 1
+            with open(path, "rb") as a, open(os.path.join(
+                    dst, f"{sid}_{kind}.txt"), "rb") as b:
+                if a.read() != b.read():
+                    differ.append(f"{sid}_{kind}")
+        ids = np.loadtxt(os.path.join(src, f"{sid}_inst.txt")).astype(int)
+        for name, write in (("native", native.savetxt_fast),
+                            ("numpy", np.savetxt)):
+            write(os.path.join(check, f"{sid}_inst_{name}.txt"), ids,
+                  fmt="%d")
+        with open(os.path.join(check, f"{sid}_inst_native.txt"), "rb") as a, \
+                open(os.path.join(check, f"{sid}_inst_numpy.txt"), "rb") as b:
+            if a.read() != b.read():
+                differ.append(f"{sid}_inst")
+    ok = files == 4 * BATCH and not differ
+    emit({"phase": "tools", "ok": ok, "gen_vis_s": vis_s,
+          "vis_files": len(os.listdir(dst)), "native_build_s": build_s,
+          "native_files_checked": files + BATCH, "bytes_differ": differ})
+    if not ok:
+        raise AssertionError(f"tools: {files} files, differ {differ}")
+
+
 KERNELS = {
     "K1": ("flash_topk", "sednet_tpu_torch/csrc/flash_topk.cu",
            "sednet_tpu/ops/flash_topk.py:259"),
@@ -3659,6 +4424,13 @@ KERNELS = {
            "sednet_tpu/ops/pallas_kernels.py:427"),
     "K2b": ("mean_shift_step_batched", "sednet_tpu_torch/csrc/mean_shift.cu",
             "sednet_tpu/ops/pallas_kernels.py:106"),
+    # the bf16=True branch of the same two Pallas kernels (config.ms_bf16)
+    "K2 bf16": ("mean_shift_step (bf16)",
+                "sednet_tpu_torch/csrc/mean_shift_bf16.cu",
+                "sednet_tpu/ops/pallas_kernels.py:427"),
+    "K2b bf16": ("mean_shift_step_batched (bf16)",
+                 "sednet_tpu_torch/csrc/mean_shift_bf16.cu",
+                 "sednet_tpu/ops/pallas_kernels.py:106"),
     "K3": ("colmax", "sednet_tpu_torch/csrc/colmax.cu",
            "sednet_tpu/ops/pallas_kernels.py:184"),
     "K4": ("fused_edge_reductions", "sednet_tpu_torch/csrc/fused_edgeconv.cu",
@@ -3711,7 +4483,7 @@ def main():
     emb = forward(model, x)[0].contiguous()
 
     timings = phase_kernels(model, x, emb)
-    counts, _ = phase_headline(model, x, shapes)
+    counts, head_labels = phase_headline(model, x, shapes)
     phase_cluster_batch(emb)
     for key, cases in phase_kernels_slice2(models, x).items():
         timings.setdefault(key, []).extend(cases)
@@ -3741,6 +4513,14 @@ def main():
     timings["K6b"] = k6b
     serve_counts = phase_serve(models, x_np)
     e2e_counts = phase_parsenet_e2e(models, card)
+    bf16_cases, serve_bf16_counts, predict_bf16_counts = phase_ms_bf16(
+        models, shapes, x, emb)
+    timings.update(bf16_cases)
+    p2_counts, k1_three_nn = phase_pointnet2_iou(models, x, head_labels)
+    timings["K1"].append(k1_three_nn)
+    _, k2_resplit = phase_resplit(model, x)
+    timings["K2"].append(k2_resplit)
+    phase_tools()
     # each kernel's launches from the path of this smoke that runs it: K1,
     # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds (K1 also
     # from the fit pipeline, the spline fits and the SplineNet trainer's
@@ -3753,18 +4533,25 @@ def main():
                   "fit_splines": spline_counts["K1"],
                   "splinenet_train": spline_train_k1,
                   "serve": serve_counts["K1"],
-                  "parsenet_e2e": e2e_counts["K1"]}
+                  "parsenet_e2e": e2e_counts["K1"],
+                  "pointnet2_iou": p2_counts["K1"]}
     counts["K1"] = sum(k1_by_path.values())
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]
     counts["K6b"] = train_counts["K6b"]
+    # the bf16 branch: K2's from the ms_bf16 server's clustered request,
+    # K2b's from the eval under ms_bf16
+    counts["K2 bf16"] = serve_bf16_counts["K2 bf16"]
+    counts["K2b bf16"] = predict_bf16_counts["K2b bf16"]
 
     summary = []
     for key, (name, source, replaces) in KERNELS.items():
         cases = timings[key]
-        # K1, K4, K6 and K6b: the layer-2 case; K2b: the enriched E=140
-        # case; K5: m = 36, the block of LOBPCG's Rayleigh-Ritz matvec
-        main_case = (cases[1] if key in ("K1", "K2b", "K4", "K5", "K6", "K6b")
+        # K1, K4, K6 and K6b: the layer-2 case; K2b (and its bf16 branch):
+        # the enriched E=140 case; K5: m = 36, the block of LOBPCG's
+        # Rayleigh-Ritz matvec
+        main_case = (cases[1] if key in ("K1", "K2b", "K2b bf16", "K4", "K5",
+                                         "K6", "K6b")
                      else cases[0])
         summary.append({
             "name": name, "route": "cuda", "source": source,
@@ -3776,7 +4563,10 @@ def main():
             "bound_f32_ms": main_case.get("bound_f32_ms"),
             "library_ms": main_case["library_ms"],
             "case": main_case["case"], "parity": "ok",
+            "cases_held": [c["case"] for c in cases],
             **({"launches_by_path": k1_by_path} if key == "K1" else {}),
+            **({"device_ms": main_case["device_ms"]}
+               if key.endswith("bf16") else {}),
             **({"device_ms": main_case["device_ms"],
                 "device_split": main_case["device_split"],
                 "earlier_device_ms": main_case.get("parent", {}).get(

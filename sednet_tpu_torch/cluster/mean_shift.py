@@ -1,9 +1,14 @@
 """Mean-shift clustering on the unit hypersphere, with the guarded retry.
 
 Counterpart of `sednet_tpu/cluster/mean_shift.py:54-459` (reference:
-src/mean_shift.py:11-186, generate_predictions_aug.py:25-35). The shift
-steps run kernel K2 (one shape) or K2b (a batch), the bandwidth's k-th
-distances come from kernel K1, and the three NMS passes run kernel K3.
+src/mean_shift.py:11-186, generate_predictions_aug.py:25-35). The gaussian
+shift steps run kernel K2 (one shape) or K2b (a batch), with bf16 tile
+inputs under `bf16=True` (`config.ms_bf16`, the Pallas kernels' branch),
+the bandwidth's k-th distances come from kernel K1, and the three NMS
+passes run kernel K3. The epanechnikov kernel (`kernel_type`) is JAX's XLA
+step in plain PyTorch on every device, as JAX takes its Pallas step only
+for the gaussian kernel (`mean_shift.py:168-169`); it reads no `bf16`, as
+that step does not.
 
 Where the JAX package jits a fixed-shape loop, this runs eagerly with the
 same semantics: the tol early exit stops after the first step whose max
@@ -111,12 +116,35 @@ def _iterate_on_device(step, x, iterations: int, tol: float):
     return cur
 
 
+KERNEL_TYPES = ("gaussian", "epanechnikov")
+
+
+def epanechnikov_step(new_x, x, bandwidth):
+    """One epanechnikov mean-shift step, JAX's XLA step
+    (`sednet_tpu/cluster/mean_shift.py:180-188`, reference:
+    src/mean_shift.py:66-68): k = relu(0.75 (1 - d / b^2)) with
+    d = 2 - 2 new_x . x, new_x = (k @ x) / k.1, rows normalised with the
+    norm clipped at 1e-12."""
+    dist = 2.0 - 2.0 * (new_x @ x.T)
+    k = torch.relu(0.75 * (1.0 - dist / (bandwidth * bandwidth)))
+    out = (k @ x) * (1.0 / k.sum(1, keepdim=True))
+    return out / torch.clamp_min(
+        torch.linalg.vector_norm(out, dim=1, keepdim=True), 1e-12)
+
+
 def mean_shift_iterate(x, bandwidth, iterations: int = 50,
-                       tol: float = 0.0):
-    """Up to `iterations` gaussian mean-shift steps of x (N, E) unit rows
-    (K2), stopping early once the max movement is <= tol (0 disables)."""
+                       tol: float = 0.0, *, kernel_type: str = "gaussian",
+                       bf16: bool = False):
+    """Up to `iterations` mean-shift steps of x (N, E) unit rows, stopping
+    early once the max movement is <= tol (0 disables): gaussian on K2
+    (bf16 tile inputs under bf16=True), or epanechnikov."""
+    if kernel_type not in KERNEL_TYPES:
+        raise ValueError(f"kernel_type {kernel_type!r} not in {KERNEL_TYPES}")
     bw = torch.as_tensor(bandwidth, dtype=torch.float32, device=x.device)
-    return _iterate_until(lambda cur: mean_shift_step(cur, x, bw),
+    if kernel_type == "epanechnikov":
+        return _iterate_until(lambda cur: epanechnikov_step(cur, x, bw),
+                              x, iterations, tol)
+    return _iterate_until(lambda cur: mean_shift_step(cur, x, bw, bf16=bf16),
                           x, iterations, tol)
 
 
@@ -154,16 +182,20 @@ def nms(centers, x, b: float):
 
 
 def mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
-               iterations: int = 50, bandwidth=None, tol: float = 0.0,
+               iterations: int = 50, kernel_type: str = "gaussian",
+               bandwidth=None, bf16: bool = False, tol: float = 0.0,
                generator=None, sel=None) -> MeanShiftResult:
-    """One clustering pass (reference: src/mean_shift.py:19-43)."""
+    """One clustering pass (reference: src/mean_shift.py:19-43); a drawn
+    bandwidth is clipped at 0.003 (`_MIN_BANDWIDTH`) as JAX's is
+    (`mean_shift.py:298`)."""
     q = np.float32(quantile)
     if bandwidth is None:
         bandwidth = compute_bandwidth(x, num_samples, q, generator=generator,
                                       sel=sel)
         bandwidth = max(float(bandwidth), _MIN_BANDWIDTH)
     bandwidth = float(bandwidth)
-    shifted = mean_shift_iterate(x, bandwidth, iterations, tol)
+    shifted = mean_shift_iterate(x, bandwidth, iterations, tol,
+                                 kernel_type=kernel_type, bf16=bf16)
     labels, center_mask, num = nms(shifted, x, bandwidth)
     return MeanShiftResult(shifted, labels, center_mask, num, bandwidth, q)
 
@@ -202,20 +234,22 @@ def _guarded(x, e, first, attempt, *, num_samples, max_clusters,
 
 
 def _attempts(x, sels, *, num_samples, iterations, tol, generator,
-              bandwidth=None):
+              bandwidth=None, kernel_type="gaussian", bf16=False):
     """attempt(q, i): one mean-shift pass of x at quantile q with the
     subsample sels[i] (the last repeats)."""
     def attempt(q, i):
         return mean_shift(x, num_samples=num_samples, quantile=q,
-                          iterations=iterations, bandwidth=bandwidth,
-                          tol=tol, generator=generator,
+                          iterations=iterations, kernel_type=kernel_type,
+                          bandwidth=bandwidth, bf16=bf16, tol=tol,
+                          generator=generator,
                           sel=sels[min(i, len(sels) - 1)])
     return attempt
 
 
 def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
-                     iterations: int = 50, max_clusters: int = 49,
-                     retry_factor: float = 1.2, tol: float = DEFAULT_MS_TOL,
+                     iterations: int = 50, kernel_type: str = "gaussian",
+                     max_clusters: int = 49, retry_factor: float = 1.2,
+                     bf16: bool = False, tol: float = DEFAULT_MS_TOL,
                      generator=None, sel=None,
                      bandwidth=None) -> MeanShiftResult:
     """Retry with the quantile times `retry_factor` (in float32) while
@@ -228,7 +262,8 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
     x = kernel_width(x)
     attempt = _attempts(x, sel if isinstance(sel, (list, tuple)) else [sel],
                         num_samples=num_samples, iterations=iterations,
-                        tol=tol, generator=generator, bandwidth=bandwidth)
+                        tol=tol, generator=generator, bandwidth=bandwidth,
+                        kernel_type=kernel_type, bf16=bf16)
     return _guarded(x, e, attempt(np.float32(quantile), 0), attempt,
                     num_samples=num_samples, max_clusters=max_clusters,
                     retry_factor=retry_factor)
@@ -246,12 +281,14 @@ class ClusterPending:
 
 
 def cluster_batch_async(x, *, num_samples: int = 10000, quantile=0.015,
-                        iterations: int = 50, tol: float = DEFAULT_MS_TOL,
-                        generator=None, sels=None) -> ClusterPending:
+                        iterations: int = 50, bf16: bool = False,
+                        tol: float = DEFAULT_MS_TOL, generator=None,
+                        sels=None) -> ClusterPending:
     """The device half of `cluster_batch`: one bandwidth per shape (K1)
-    and the shift steps of every shape in one launch each (K2b), with the
-    batch-global tol exit held on the device (`_iterate_on_device`).
-    Launches only; reads nothing back to the host."""
+    and the shift steps of every shape in one launch each (K2b, bf16 tile
+    inputs under bf16=True), with the batch-global tol exit held on the
+    device (`_iterate_on_device`). Launches only; reads nothing back to the
+    host."""
     b = x.shape[0]
     e = x.shape[-1]
     x = kernel_width(x)
@@ -261,14 +298,15 @@ def cluster_batch_async(x, *, num_samples: int = 10000, quantile=0.015,
         x[i], num_samples, np.float32(quantile), generator=generator,
         sel=sels[i][0]), _MIN_BANDWIDTH) for i in range(b)])
     shifted = _iterate_on_device(
-        lambda cur: mean_shift_step_batched(cur, x, bw), x, iterations, tol)
+        lambda cur: mean_shift_step_batched(cur, x, bw, bf16=bf16), x,
+        iterations, tol)
     return ClusterPending(x, e, shifted, bw, sels, generator)
 
 
 def cluster_batch_finalize(pending: ClusterPending, *,
                            num_samples: int = 10000, quantile=0.015,
                            iterations: int = 50, max_clusters: int = 49,
-                           retry_factor: float = 1.2,
+                           retry_factor: float = 1.2, bf16: bool = False,
                            tol: float = DEFAULT_MS_TOL):
     """The host half of `cluster_batch`: the bandwidths read back, NMS of
     every shape (K3) with one read of the cluster counts, and a guarded
@@ -289,7 +327,7 @@ def cluster_batch_finalize(pending: ClusterPending, *,
                                 np.float32(quantile))
         attempt = _attempts(x[i], pending.sels[i], num_samples=num_samples,
                             iterations=iterations, tol=tol,
-                            generator=pending.generator)
+                            generator=pending.generator, bf16=bf16)
         res = _guarded(x[i], pending.width, first, attempt,
                        num_samples=num_samples, max_clusters=max_clusters,
                        retry_factor=retry_factor)
@@ -301,8 +339,8 @@ def cluster_batch_finalize(pending: ClusterPending, *,
 
 def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
                   iterations: int = 50, max_clusters: int = 49,
-                  retry_factor: float = 1.2, tol: float = DEFAULT_MS_TOL,
-                  generator=None, sels=None):
+                  retry_factor: float = 1.2, bf16: bool = False,
+                  tol: float = DEFAULT_MS_TOL, generator=None, sels=None):
     """Cluster a batch x (B, N, E): one bandwidth per shape, the shift
     steps of every shape in one launch (K2b) with a batch-global tol exit,
     per-shape NMS, and a guarded retry only for shapes with more than
@@ -320,8 +358,10 @@ def cluster_batch(x, *, num_samples: int = 10000, quantile=0.015,
     flags {"capped", "bw_capped"} as (B,) bool arrays."""
     pending = cluster_batch_async(x, num_samples=num_samples,
                                   quantile=quantile, iterations=iterations,
-                                  tol=tol, generator=generator, sels=sels)
+                                  bf16=bf16, tol=tol, generator=generator,
+                                  sels=sels)
     return cluster_batch_finalize(pending, num_samples=num_samples,
                                   quantile=quantile, iterations=iterations,
                                   max_clusters=max_clusters,
-                                  retry_factor=retry_factor, tol=tol)
+                                  retry_factor=retry_factor, bf16=bf16,
+                                  tol=tol)

@@ -1,9 +1,11 @@
 """Dataset loaders for the two h5 schemas and the batch loaders.
 
 A copy of `sednet_tpu/data/datasets.py` (`_H5Dataset`, `ParseNetDataset`,
-`EdgeDataset`, `MixedDataset`, `BatchLoader`, `PrefetchLoader`) without
-its C++ preprocessing branch: items
-take the numpy route the JAX package takes with `use_native=False`.
+`EdgeDataset`, `MixedDataset`, `BatchLoader`, `PrefetchLoader`). Items take
+the numpy route by default; `use_native=True` takes the C++ preprocessing
+of `data/native.py` for items without an edge cloud, as the JAX package
+does, and raises where that library cannot be built (JAX silently takes
+numpy there).
 
 Reference schemas:
   * ParseNet: data_parsenet/{train,test}_data.h5 with keys points/labels/
@@ -42,7 +44,8 @@ class _H5Dataset:
 
     def __init__(self, points, labels, normals, prim, edges=None, edges_w=None,
                  edges1w=None, *, train=False, augment=True, noise=False,
-                 noise_level=0, num_points=10000, max_segments=50, seed=0):
+                 noise_level=0, num_points=10000, max_segments=50, seed=0,
+                 use_native=False):
         self.points = points.astype(np.float32)
         means = self.points.mean(1, keepdims=True)
         self.points -= means
@@ -64,6 +67,11 @@ class _H5Dataset:
         self.max_segments = max_segments
         self.rng = np.random.RandomState(seed)
         self.augmentor = Augmentor(self.rng)
+        self.use_native = use_native
+        if use_native:
+            from sednet_tpu_torch.data import native
+
+            native.lib()   # raises where the library cannot be built
 
     def __len__(self):
         return self.points.shape[0]
@@ -73,21 +81,31 @@ class _H5Dataset:
         nrm = None if self.normals is None else self.normals[index].copy()
         e1w = (None if self.edges1w is None
                else self.edges1w[index].copy())
-        extent = pts.max(0) - pts.min(0)
-        pts = pts / (extent.max() + EPS)
-        if e1w is not None:
-            # the edge cloud rides the same frame as the points: extent
-            # scale, augmentation draws and PCA rotation (reference:
-            # src/dataset_segments_my.py:430-462)
-            e1w = e1w / (extent.max() + EPS)
-        if self.augment:
+        if self.use_native and e1w is None:
+            # the fused C++ route: normalise, augment, PCA align
+            from sednet_tpu_torch.data import native
+
+            p, n2 = native.preprocess_batch(
+                pts[None], None if nrm is None else nrm[None],
+                augment=self.augment,
+                seed=int(self.rng.randint(0, 2 ** 31)), threads=1)
+            pts, nrm = p[0], None if n2 is None else n2[0]
+        else:
+            extent = pts.max(0) - pts.min(0)
+            pts = pts / (extent.max() + EPS)
             if e1w is not None:
-                pts, nrm, e1w = self.augmentor(pts, nrm, e1w)
-            else:
-                pts, nrm = self.augmentor(pts, nrm)
-        pts, nrm, r = pca_align(pts, nrm)
-        if e1w is not None:
-            e1w = (e1w @ r.T).astype(np.float32)
+                # the edge cloud rides the same frame as the points:
+                # extent scale, augmentation draws and PCA rotation
+                # (reference: src/dataset_segments_my.py:430-462)
+                e1w = e1w / (extent.max() + EPS)
+            if self.augment:
+                if e1w is not None:
+                    pts, nrm, e1w = self.augmentor(pts, nrm, e1w)
+                else:
+                    pts, nrm = self.augmentor(pts, nrm)
+            pts, nrm, r = pca_align(pts, nrm)
+            if e1w is not None:
+                e1w = (e1w @ r.T).astype(np.float32)
 
         if self.noise:
             if self.noise_level == -1:

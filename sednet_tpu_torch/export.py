@@ -42,8 +42,8 @@ class _Forward(torch.nn.Module):
     """The inference forward that `export_forward` traces (JAX's
     `_forward_fn`): x (B, N, C) -> a plain dict with JAX's keys, so that
     the bundle's calling convention needs no class of this package.
-    `edge_logits` appears only when the model has an edge head (the port's
-    SEDNet has no normal head, so `normals_pred` never appears)."""
+    `edge_logits` appears only when the model has an edge head, and
+    `normals_pred` only when it has a normal head (`predict_normal`)."""
 
     def __init__(self, model):
         super().__init__()
@@ -56,7 +56,7 @@ class _Forward(torch.nn.Module):
                "type_logits": out.type_logits}
         if out.edge_logits is not None:
             res["edge_logits"] = out.edge_logits
-        if getattr(out, "normals_pred", None) is not None:
+        if out.normals_pred is not None:
             res["normals_pred"] = out.normals_pred
         return res
 

@@ -1,8 +1,9 @@
 """Hungarian-matched segmentation and type IoU.
 
-Counterpart of `sednet_tpu/metrics/segmentation.py:24-297` (reference:
-src/segment_utils.py:140-242), with the chamfer-recall ("usecd") variant of
-the reference-default eval. The relaxed-IoU cost is computed in float32
+Counterpart of `sednet_tpu/metrics/segmentation.py:24-347` (reference:
+src/segment_utils.py:124-355), with the chamfer-recall ("usecd") variant of
+the reference-default eval, and the two per-sample metrics
+`mean_iou_one_sample` and `compute_type_miou_abc`. The relaxed-IoU cost is computed in float32
 over 50 one-hot columns, as the JAX package does (its counts are integers,
 so the cost is the same bits on any device); the assignment is scipy's on
 the host; the chamfer distances of the matched pairs run in PyTorch on the
@@ -245,3 +246,63 @@ def siou_matched_segments_usecd_batch(targets, pred_labels, primitives_pred,
             np.asarray(t)).shape[0]
         out.append((seg_iou, prim_iou, matching, prim_pairs, recall))
     return out
+
+
+def mean_iou_one_sample(pred: np.ndarray, gt: np.ndarray, c: int) -> float:
+    """The IoU of each class 0 .. c-1 averaged over the c classes, a
+    float32 epsilon on both sides of each ratio (reference:
+    src/segment_utils.py:124-137)."""
+    eps = np.finfo(np.float32).eps
+    iou = 0.0
+    for k in range(c):
+        gi, pi = gt == k, pred == k
+        iou += (np.logical_and(gi, pi).sum() + eps) / (
+            np.logical_or(gi, pi).sum() + eps)
+    return iou / c
+
+
+def _mode(a: np.ndarray):
+    vals, counts = np.unique(a, return_counts=True)
+    return vals[np.argmax(counts)]
+
+
+def _remap_abc(t: np.ndarray) -> np.ndarray:
+    """The ABC type remap of `compute_type_miou_abc`: 6, 7 and 9 to 0, 8
+    to 2 (reference: src/segment_utils.py:322-328)."""
+    t = t.copy()
+    t[(t == 6) | (t == 7) | (t == 9)] = 0
+    t[t == 8] = 2
+    return t
+
+
+def compute_type_miou_abc(type_per_point: np.ndarray, t_gt: np.ndarray,
+                          cluster_pred: np.ndarray, i_gt: np.ndarray) -> float:
+    """HPNet-style per-instance type accuracy (reference:
+    src/segment_utils.py:300-355): the predicted clusters matched to the
+    true instances by the relaxed IoU (Hungarian), and the share of matched
+    pairs whose most frequent remapped type agrees.
+
+    type_per_point: (N, C) scores or (N,) ids; t_gt, cluster_pred, i_gt:
+    (N,) ints, i_gt -1 for points of no instance."""
+    t_pred = _remap_abc(type_per_point.argmax(-1) if type_per_point.ndim == 2
+                        else type_per_point)
+    t_gt = _remap_abc(t_gt)
+    pred_hot = to_one_hot(cluster_pred, int(cluster_pred.max()) + 1)
+    if i_gt.min() == -1:
+        gt_hot = to_one_hot(i_gt + 1, int(i_gt.max()) + 2)[:, 1:]
+    else:
+        gt_hot = to_one_hot(i_gt, int(i_gt.max()) + 1)
+    cost = 1.0 - relaxed_iou_fast(torch.from_numpy(pred_hot[None]),
+                                  torch.from_numpy(
+                                      np.ascontiguousarray(gt_hot)[None])
+                                  ).numpy()[0]
+    rows, cols = hungarian_match(cost)
+    ok, cnt = 0, 0
+    for p_ind, g_ind in zip(rows, cols):
+        gt_sel = t_gt[i_gt == g_ind]
+        pr_sel = t_pred[cluster_pred == p_ind]
+        if gt_sel.size == 0 or pr_sel.size == 0:
+            continue
+        ok += int(_mode(gt_sel) == _mode(pr_sel))
+        cnt += 1
+    return ok / max(cnt, 1)

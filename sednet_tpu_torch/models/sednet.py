@@ -8,9 +8,8 @@ src/SEDNet.py:216-343), channels-last, with the same layer names:
   edge:  x_type -> 128 (GN 4, no activation) -> 2
   embed: x_all -> 256 (GN 4, ReLU); early fusion += w * relu(GN(asis(x_type)));
          late fusion += w * relu(Dense([type_logits, edge_logits])); -> emb_size
-
-The normal head (`predict_normal`) is not ported: no checkpoint of this
-slice has it.
+  normal (`predict_normal`): x_all -> 128 (GN 4, no activation) -> 3, unit
+         rows (norm clipped at 1e-12)
 """
 from __future__ import annotations
 
@@ -30,13 +29,15 @@ class SEDNetOutput:
     type_log_prob: torch.Tensor        # (B, N, num_primitives)
     type_logits: torch.Tensor          # (B, N, num_primitives)
     edge_logits: Optional[torch.Tensor] = None   # (B, N, 2)
+    normals_pred: Optional[torch.Tensor] = None  # (B, N, 3) unit rows
 
 
 class SEDNet(nn.Module):
     def __init__(self, emb_size: int = 128, num_primitives: int = 6,
                  mode: int = 5, k: int = 64, normal_metric_w: float = 1.0,
                  w_pos_enc: float = 0.2, edge_module: bool = True,
-                 late_fusion: bool = True, combine_label_prim: bool = True):
+                 late_fusion: bool = True, combine_label_prim: bool = True,
+                 predict_normal: bool = False):
         super().__init__()
         self.w_pos_enc = w_pos_enc
         self.edge_module = edge_module
@@ -62,6 +63,11 @@ class SEDNet(nn.Module):
             fuse_in = num_primitives + (2 if edge_module else 0)
             self.prim_encoding = nn.Linear(fuse_in, 256)
         self.mlp_seg_prob2 = nn.Linear(256, emb_size)
+        self.predict_normal = predict_normal
+        if predict_normal:
+            self.normal_conv1 = nn.Linear(256, 128)
+            self.normal_gn = GroupNorm(4, 128)
+            self.normal_conv2 = nn.Linear(128, 3)
 
     @classmethod
     def from_config(cls, cfg) -> "SEDNet":
@@ -70,7 +76,8 @@ class SEDNet(nn.Module):
                    normal_metric_w=cfg.normal_metric_W,
                    w_pos_enc=cfg.w_pos_enc, edge_module=cfg.edge_module,
                    late_fusion=cfg.late_fusion,
-                   combine_label_prim=cfg.combine_label_prim)
+                   combine_label_prim=cfg.combine_label_prim,
+                   predict_normal=cfg.predict_normal)
 
     def forward(self, points, idx1=None, encoder_out=None) -> SEDNetOutput:
         """points: (B, N, 6) (mode 5) or (B, N, 3) (mode 0). encoder_out:
@@ -102,7 +109,14 @@ class SEDNet(nn.Module):
                 fuse_in = torch.cat([fuse_in, edge_logits.detach()], -1)
             x = x + self.w_pos_enc * F.relu(self.prim_encoding(fuse_in))
         embedding = self.mlp_seg_prob2(x)
-        return SEDNetOutput(embedding, type_log_prob, type_logits, edge_logits)
+
+        normals_pred = None
+        if self.predict_normal:
+            nr = self.normal_conv2(self.normal_gn(self.normal_conv1(x_all)))
+            normals_pred = nr / torch.clamp_min(
+                torch.linalg.vector_norm(nr, dim=-1, keepdim=True), 1e-12)
+        return SEDNetOutput(embedding, type_log_prob, type_logits, edge_logits,
+                            normals_pred)
 
 
 def apply_fused(model: SEDNet, points) -> SEDNetOutput:

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sednet_tpu_torch"
 SOURCES = ("colmax.cu", "errors.cu", "flash_topk.cu", "fused_edgeconv.cu",
            "gather_reduce.cu", "gather_reduce_bwd.cu", "mean_shift.cu",
-           "segsum.cu")
+           "mean_shift_bf16.cu", "segsum.cu")
 # -fmad=false keeps every product and sum that the sources write apart
 # as written (the dot products use explicit fmaf), so the arithmetic
 # follows the plain PyTorch versions step for step.
@@ -37,6 +37,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "sednet_topk": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P),
     "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "sednet_mean_shift_step_bf16": (_P, _P, _P, _I, _I, _I, _P, _P),
     "sednet_colmax": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
     "sednet_fused_edge_reductions": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _P, _P, _P, _P, _P, _P, _P, _P),

@@ -5,8 +5,9 @@ Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
 
   * `mean_shift_step` / `mean_shift_step_batched` -- `mean_shift_step_pallas`
     and `mean_shift_step_pallas_batched`. One CUDA kernel with a batch grid
-    axis (`csrc/mean_shift.cu`) serves both; each wrapper counts its own
-    launches.
+    axis (`csrc/mean_shift.cu`) serves both, and its bf16 twin
+    (`csrc/mean_shift_bf16.cu`) their `bf16=True` branch; each wrapper
+    counts its own launches (`launches`, `launches_bf16`).
   * `colmax` -- `colmax_pallas` (`csrc/colmax.cu`).
   * `segsum_sorted_scan` -- `segsum_sorted_scan_pallas` (`csrc/segsum.cu`):
     per-destination sums of entries sorted by destination, the A^T v of the
@@ -14,7 +15,8 @@ Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 beside it. The kernels are compiled for row widths that are multiples of 32
-up to 256, as the TPU kernels take any width; other widths are padded with
+up to 256 (the bf16 step's products are 16 deep), as the TPU kernels take
+any width; other widths are padded with
 zero columns up to the next multiple of 32 (the 140-d HPNet-enriched
 embedding runs at 160), which change neither a dot product nor a norm.
 A loop of steps pads once (`kernel_width`) so that no step copies. K5 takes
@@ -35,25 +37,36 @@ def kernel_width(x):
     return _build.pad_width(x) if x.is_cuda else x
 
 
-def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048):
+def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048,
+                          bf16: bool = False):
     """Plain PyTorch version: new_x, x (B, N, E); inv_b2 (B,) = 1/b^2.
 
         k = exp(max((new_x . x - 1) * inv_b2, -75))
         out = rownorm((k @ x) / max(k.1, 1e-30)),  norm eps 1e-24
-    """
+
+    bf16=True does the roundings of the Pallas body with bf16 tile inputs
+    (`ops/pallas_kernels.py` with dt = bfloat16) in the inputs' own type:
+    new_x and x rounded to bf16 (round to nearest even) for both products,
+    k summed before it is rounded to bf16 for k @ x. Given float64 inputs
+    it gives the same function in float64."""
     out = torch.empty_like(new_x)
+    if bf16:
+        new_x, x = (t.to(torch.bfloat16).to(t.dtype) for t in (new_x, x))
     for b in range(x.shape[0]):
         for r0 in range(0, x.shape[1], row_block):
             s = new_x[b, r0:r0 + row_block] @ x[b].T
             k = torch.exp(torch.clamp_min((s - 1.0) * inv_b2[b], -75.0))
-            o = (k @ x[b]) / torch.clamp_min(k.sum(1, keepdim=True), 1e-30)
+            den = k.sum(1, keepdim=True)
+            if bf16:
+                k = k.to(torch.bfloat16).to(x.dtype)
+            o = (k @ x[b]) / torch.clamp_min(den, 1e-30)
             nrm = torch.sqrt(torch.clamp_min((o * o).sum(1, keepdim=True),
                                              1e-24))
             out[b, r0:r0 + row_block] = o / nrm
     return out
 
 
-def _ms_launch(new_x, x, inv_b2):
+def _ms_launch(new_x, x, inv_b2, bf16):
     _build.require_cuda_f32("mean_shift_step new_x", new_x)
     _build.require_cuda_f32("mean_shift_step x", x)
     if new_x.shape != x.shape or x.dim() != 3:
@@ -65,9 +78,16 @@ def _ms_launch(new_x, x, inv_b2):
     if inv_b2.shape[0] != x.shape[0]:
         raise ValueError("mean_shift_step: one bandwidth per shape")
     out = torch.empty_like(q)
-    err = _build.lib().sednet_mean_shift_step(
-        q.data_ptr(), xp.data_ptr(), inv_b2.data_ptr(), x.shape[0],
-        x.shape[1], q.shape[-1], out.data_ptr(), _build.stream_of(x))
+    lib = _build.lib()
+    if bf16:
+        # the casts of the Pallas wrapper (astype(bfloat16)); the kernel
+        # reads bf16 tiles and writes float32
+        q, xp = q.to(torch.bfloat16), xp.to(torch.bfloat16)
+        launch = lib.sednet_mean_shift_step_bf16
+    else:
+        launch = lib.sednet_mean_shift_step
+    err = launch(q.data_ptr(), xp.data_ptr(), inv_b2.data_ptr(), x.shape[0],
+                 x.shape[1], q.shape[-1], out.data_ptr(), _build.stream_of(x))
     _build.check(err, "mean_shift_step")
     return out if q.shape[-1] == e else out[..., :e].contiguous()
 
@@ -77,30 +97,40 @@ def _inv_b2(bandwidth, like):
     return 1.0 / (bw * bw)
 
 
-def mean_shift_step(new_x, x, bandwidth):
+def _count(fn, bf16):
+    if bf16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def mean_shift_step(new_x, x, bandwidth, bf16: bool = False):
     """One mean-shift update of one shape: new_x, x (N, E) unit rows,
-    bandwidth a scalar (K2, `mean_shift_step_pallas`)."""
+    bandwidth a scalar (K2, `mean_shift_step_pallas`). bf16=True runs both
+    tile products on bf16 inputs with float32 sums (`csrc/mean_shift_bf16.cu`,
+    the Pallas kernel's `bf16=True`; counted in `launches_bf16`)."""
     inv_b2 = _inv_b2(bandwidth, x).reshape(1)
     if x.device.type == "cpu":
-        return mean_shift_step_plain(new_x[None], x[None], inv_b2)[0]
-    out = _ms_launch(new_x[None], x[None], inv_b2)[0]
-    mean_shift_step.launches += 1
+        return mean_shift_step_plain(new_x[None], x[None], inv_b2,
+                                     bf16=bf16)[0]
+    out = _ms_launch(new_x[None], x[None], inv_b2, bf16)[0]
+    _count(mean_shift_step, bf16)
     return out
 
 
-def mean_shift_step_batched(new_x, x, bandwidth):
+def mean_shift_step_batched(new_x, x, bandwidth, bf16: bool = False):
     """Batched update: new_x, x (B, N, E), bandwidth (B,) (K2b,
-    `mean_shift_step_pallas_batched`)."""
+    `mean_shift_step_pallas_batched`); bf16 as in `mean_shift_step`."""
     inv_b2 = _inv_b2(bandwidth, x).reshape(-1)
     if x.device.type == "cpu":
-        return mean_shift_step_plain(new_x, x, inv_b2)
-    out = _ms_launch(new_x, x, inv_b2)
-    mean_shift_step_batched.launches += 1
+        return mean_shift_step_plain(new_x, x, inv_b2, bf16=bf16)
+    out = _ms_launch(new_x, x, inv_b2, bf16)
+    _count(mean_shift_step_batched, bf16)
     return out
 
 
-mean_shift_step.launches = 0
-mean_shift_step_batched.launches = 0
+mean_shift_step.launches = mean_shift_step.launches_bf16 = 0
+mean_shift_step_batched.launches = mean_shift_step_batched.launches_bf16 = 0
 
 
 def colmax_plain(rows, cols, bias, thresh: float, gain: float,

@@ -10,6 +10,7 @@ from sednet_tpu_torch.postproc.boundary import (
     bad_points_mask,
     face_adjacency,
 )
+from sednet_tpu_torch.postproc.inst_cluster import resplit_instances
 from sednet_tpu_torch.postproc.intersections import (
     plane_plane,
     plane_cylinder,

@@ -82,11 +82,13 @@ STAGES = tuple(f"predict_shapes/{s}" for s in (
 
 def cluster_settings(cfg: Config, n: int) -> dict:
     """guard_mean_shift's keywords for clouds of n points, from cfg's ms_*
-    fields as `sednet_tpu/predict.py:386-390` passes them."""
+    fields as `sednet_tpu/predict.py:380-383,453-457` passes them (bf16 the
+    steps' tile inputs, `ms_bf16`)."""
     return {"num_samples": min(cfg.ms_num_samples, n),
             "quantile": cfg.ms_quantile, "iterations": cfg.ms_iterations,
             "max_clusters": cfg.ms_max_clusters - 1,
-            "retry_factor": cfg.ms_retry_factor, "tol": cfg.ms_tol}
+            "retry_factor": cfg.ms_retry_factor, "bf16": cfg.ms_bf16,
+            "tol": cfg.ms_tol}
 
 
 def load_models(npz: str, cfg: Config | None = None, device=None,
@@ -364,7 +366,7 @@ def predict_shapes_async(model_type, model_inst, batch: dict, cfg: Config, *,
         clusters = cluster_batch_async(
             emb_n.contiguous(), generator=generator, sels=sels,
             num_samples=kw["num_samples"], quantile=kw["quantile"],
-            iterations=kw["iterations"], tol=kw["tol"])
+            iterations=kw["iterations"], bf16=kw["bf16"], tol=kw["tol"])
     pending = {"batch": batch, "cfg": cfg, "device": dev,
                "clusters": clusters,
                "pred_prim": type_lp.argmax(-1),

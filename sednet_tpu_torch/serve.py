@@ -79,7 +79,7 @@ def cluster_shape(emb, xyz, normals, cfg: Config, generator):
         emb, num_samples=min(cfg.ms_num_samples, n),
         quantile=cfg.ms_quantile, iterations=cfg.ms_iterations,
         max_clusters=cfg.ms_max_clusters - 1,
-        retry_factor=cfg.ms_retry_factor, tol=cfg.ms_tol,
+        retry_factor=cfg.ms_retry_factor, bf16=cfg.ms_bf16, tol=cfg.ms_tol,
         generator=generator)
 
 
@@ -98,9 +98,6 @@ class BundleServer:
         known = {f.name for f in dataclasses.fields(Config)}
         self.cfg = Config(**{k: v for k, v in self.meta["config"].items()
                              if k in known})
-        if cluster and self.cfg.ms_bf16:
-            raise NotImplementedError("ms_bf16: the bf16 mean-shift is not "
-                                      "ported")
         # exported input spec: "float32[B,N,C]"
         spec = self.meta["models"]["type_model"]["in_avals"][0]
         dims = spec[spec.index("[") + 1:spec.index("]")].split(",")

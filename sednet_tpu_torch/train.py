@@ -68,12 +68,10 @@ class TrainState(NamedTuple):
 
 def build_model(cfg: Config) -> SEDNet:
     """The SEDNet that `sednet_tpu/train.py build_model` builds (mode 5 with
-    normals, else 0). bf16 compute, the normal head and the direct
-    GroupNorm edge convolution are not ported and raise."""
-    for field, what in (("model_bf16", "bf16 compute"),
-                        ("predict_normal", "the normal head")):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{field}: {what} is not ported")
+    normals, else 0; the normal head under `predict_normal`). bf16 compute
+    and the direct GroupNorm edge convolution are not ported and raise."""
+    if cfg.model_bf16:
+        raise NotImplementedError("model_bf16: bf16 compute is not ported")
     if not cfg.factored_gn:
         raise NotImplementedError(
             "factored_gn=False: the direct GroupNorm edge convolution is not "
@@ -83,7 +81,8 @@ def build_model(cfg: Config) -> SEDNet:
                   normal_metric_w=cfg.normal_metric_W,
                   w_pos_enc=cfg.w_pos_enc, edge_module=cfg.edge_module,
                   late_fusion=cfg.late_fusion,
-                  combine_label_prim=cfg.combine_label_prim)
+                  combine_label_prim=cfg.combine_label_prim,
+                  predict_normal=cfg.predict_normal)
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
@@ -176,6 +175,11 @@ def make_train_step(model: SEDNet, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(batch, draws, generator)
         total.backward()
+        for p in params:
+            # a parameter no loss term reads (the normal head's) has the
+            # gradient 0 under jax.grad, and optax's AdamW still decays it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if cfg.grad_clip > 0:
             # clip BEFORE the adam moments, as optax chains it, so that one
             # spiked batch cannot poison them

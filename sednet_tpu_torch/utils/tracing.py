@@ -107,7 +107,7 @@ def debug_assert_finite(x: torch.Tensor, name: str = "value") -> torch.Tensor:
 
 def kernel_launches() -> Dict[str, int]:
     """Each kernel wrapper's launch count in this process, by the kernel's
-    name (K1 ... K6b)."""
+    name (K1 ... K6b; K2 and K2b's bf16 kernel as "K2 bf16", "K2b bf16")."""
     from sednet_tpu_torch.ops import cuda_kernels as ck
     from sednet_tpu_torch.ops.flash_topk import flash_topk
     from sednet_tpu_torch.ops.fused_edgeconv import fused_edge_reductions
@@ -116,6 +116,8 @@ def kernel_launches() -> Dict[str, int]:
 
     return {"K1": flash_topk.launches, "K2": ck.mean_shift_step.launches,
             "K2b": ck.mean_shift_step_batched.launches,
+            "K2 bf16": ck.mean_shift_step.launches_bf16,
+            "K2b bf16": ck.mean_shift_step_batched.launches_bf16,
             "K3": ck.colmax.launches,
             "K4": fused_edge_reductions.launches,
             "K5": ck.segsum_sorted_scan.launches,

@@ -1,5 +1,5 @@
 """Point-cloud visualization dumps (a copy of `sednet_tpu/utils/vis.py`:
-`visual_labels` and `COLORS_TYPE`).
+`COLORS_TYPE`, `instance_palette`, `visual_labels` and `save_xyz`).
 
 Equivalent of the reference's gen_test_vis.py:51-57 (visual_labels over a
 fixed type palette) and src/VisUtils.py save_xyz. Colors here are a
@@ -31,6 +31,15 @@ def _make_palette(n: int, seed: int = 0) -> np.ndarray:
 COLORS_TYPE = _make_palette(64)
 
 
+def instance_palette(n: int) -> np.ndarray:
+    """Viridis-like ramp for instance ids (reference: gen_test_vis.py:68)."""
+    t = np.linspace(0.0, 1.0, max(n, 2))
+    r = np.clip(1.5 * t - 0.25, 0, 1)
+    g = np.clip(1.2 * t + 0.1, 0, 1)
+    b = np.clip(1.0 - 1.2 * t + 0.3, 0, 1)
+    return (np.stack([r, g, b], 1) * 255).astype(np.float32)
+
+
 def visual_labels(points: np.ndarray, labels: np.ndarray,
                   palette: np.ndarray | None = None) -> np.ndarray:
     """(N,3) points + (N,) labels -> (N,6) [xyz rgb]
@@ -41,3 +50,7 @@ def visual_labels(points: np.ndarray, labels: np.ndarray,
     out[:, 3:] = palette[np.clip(labels.astype(np.int64), 0,
                                  len(palette) - 1)]
     return out
+
+
+def save_xyz(path: str, points: np.ndarray) -> None:
+    np.savetxt(path, points, fmt="%0.6f", delimiter=" ")

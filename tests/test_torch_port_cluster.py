@@ -217,10 +217,52 @@ def test_headline_cluster_settings_match_jax():
         assert getattr(Config(), f) == getattr(JaxConfig(), f), f
     defaults = inspect.signature(guard_jax).parameters
     want = {k: defaults[k].default
-            for k in ("max_clusters", "retry_factor", "tol")}
+            for k in ("max_clusters", "retry_factor", "bf16", "tol")}
     want.update(num_samples=5000, quantile=0.015, iterations=50)
     assert cluster_settings(HEADLINE, 10000) == want
     assert cluster_settings(HEADLINE, 512)["num_samples"] == 512
+
+
+# The epanechnikov kernel: JAX's XLA step (its only route for that
+# kernel) against the port's, 20 steps at atol 1e-5, and the guarded
+# clustering on JAX's subsamples: the same partition and count.
+def test_epanechnikov_matches_jax(rng):
+    from sednet_tpu_torch.cluster import mean_shift_iterate
+
+    x = _clustered(rng)
+    want = iterate_jax(jnp.asarray(x), jnp.float32(0.3), 20,
+                       kernel_type="epanechnikov", backend="xla")
+    got = mean_shift_iterate(torch.from_numpy(x), 0.3, 20,
+                             kernel_type="epanechnikov")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    key = jax.random.PRNGKey(4)
+    gj = guard_jax(key, jnp.asarray(x), num_samples=300, quantile=0.05,
+                   kernel_type="epanechnikov")
+    gt = guard_mean_shift(torch.from_numpy(x), num_samples=300,
+                          quantile=0.05, kernel_type="epanechnikov",
+                          sel=_jax_sels(key, 400, 300))
+    assert gt.num_clusters == int(gj.num_clusters)
+    assert same_partition(gt.labels.numpy(), np.asarray(gj.labels))
+    with pytest.raises(ValueError, match="kernel_type"):
+        mean_shift_iterate(torch.from_numpy(x), 0.3, 1, kernel_type="flat")
+
+
+# ms_bf16 threads into the shift steps: 25 steps with bf16 tile inputs
+# against JAX's Pallas loop with bf16=True in interpret mode (atol 1e-4
+# after 25 steps, from 3e-5 a step), where the float32 loop lies farther
+# from both; cluster_settings passes the field on.
+def test_bf16_loop_matches_jax_and_settings_pass_it(rng):
+    from sednet_tpu_torch.cluster import mean_shift_iterate
+
+    x = _clustered(rng, n=300, noise=0.3)
+    want = np.asarray(iterate_jax(jnp.asarray(x), jnp.float32(0.3), 25,
+                                  backend="pallas", bf16=True,
+                                  interpret=True))
+    got = mean_shift_iterate(torch.from_numpy(x), 0.3, 25, bf16=True).numpy()
+    f32 = mean_shift_iterate(torch.from_numpy(x), 0.3, 25).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert np.abs(f32 - want).max() > 10 * np.abs(got - want).max()
+    assert cluster_settings(Config(ms_bf16=True), 400)["bf16"] is True
 
 
 # segment_batch clusters under the Config it is given: ms_max_clusters=3

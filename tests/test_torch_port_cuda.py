@@ -246,6 +246,106 @@ def test_mean_shift_kernel_keeps_float32_accuracy(cuda, bw):
     assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
 
 
+def _bf16_rounding_slack(x, inv_b2):
+    """Per element of the bf16 step's output (B, N, E), the most that the
+    weights whose bf16 rounding float32 arithmetic may decide either way
+    can move it: a weight k (float64, on the bf16-rounded inputs) is
+    ambiguous when k (1 - d) and k (1 + d) round to different bf16 values,
+    d bounding the kernel's relative error in k: twice the float32 plain
+    version's largest error in s = x_i . x_c on these inputs (measured
+    against float64) times 1 / b^2, the rounding of the scaled argument
+    (at most 75 in size) and expf's; rounding it the other way moves it by
+    one bf16 step, at most k 2^-7, and the row by that times
+    |x_c - out| / den."""
+    xb = x.to(torch.bfloat16).double()
+    out = []
+    for i in range(x.shape[0]):
+        s = xb[i] @ xb[i].T
+        s_err = float((xb[i].float() @ xb[i].float().T - s).abs().max())
+        arg = torch.clamp_min((s - 1.0) * inv_b2[i].double(), -75.0)
+        k = torch.exp(arg)
+        d = 2.0 * float(inv_b2[i]) * s_err + 75 * 2.0 ** -24 + 2.0 ** -21
+        amb = ((k * (1 - d)).to(torch.bfloat16)
+               != (k * (1 + d)).to(torch.bfloat16))
+        den = k.sum(1, keepdim=True)
+        a = torch.where(amb, k * 2.0 ** -7, 0.0) / den
+        o = (k.to(torch.bfloat16).double() @ xb[i]) / den
+        o = o / o.norm(dim=1, keepdim=True)
+        # |x_c - o| <= |x_c| + |o|, elementwise; the normalisation's
+        # factor stays within 2 of 1 for these clustered rows
+        out.append(2.0 * (a @ xb[i].abs() + a.sum(1, keepdim=True) * o.abs()))
+    return torch.stack(out)
+
+
+# The bf16 branch (`ms_bf16`, csrc/mean_shift_bf16.cu) for one shape (K2)
+# and a batch (K2b) at widths 12 to 256 (12 and 140 zero-padded to 32 and
+# 160) and row counts that fill no whole 64-row block or 32-column tile,
+# against the same function in float64 on the bf16-rounded inputs
+# (`mean_shift_step_plain(..., bf16=True)` on float64). Each element errs
+# at most twice as much as the float32 plain version's largest error (at
+# least 1e-6, a unit row's rounding), plus the slack of the weights whose
+# bf16 rounding float32 may decide either way (`_bf16_rounding_slack`):
+# the card's sums and the plain version's may round such a weight apart,
+# which at a few thousand points the plain version itself does (so the
+# smoke holds the kernel to twice the plain error alone, at 10000). And
+# the kernel does round the weights: its mean error against the rounded
+# function is below its mean error against the unrounded one.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("e", [12, 32, 64, 140, 256])
+@pytest.mark.parametrize("n", [1, 63, 3001])
+def test_mean_shift_bf16_kernel_against_float64(cuda, n, e, b):
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(_clustered(rng, b, n, e)).to(cuda)
+    for bw in (0.05, 0.15, 0.3):
+        bws = torch.full((b,), bw, device=cuda)
+        inv_b2 = 1.0 / (bws * bws)
+        if b == 1:
+            before = ck.mean_shift_step.launches_bf16
+            got = ck.mean_shift_step(x[0], x[0], bws[0], bf16=True)[None]
+            assert ck.mean_shift_step.launches_bf16 == before + 1
+        else:
+            before = ck.mean_shift_step_batched.launches_bf16
+            got = ck.mean_shift_step_batched(x, x, bws, bf16=True)
+            assert ck.mean_shift_step_batched.launches_bf16 == before + 1
+        plain = ck.mean_shift_step_plain(x, x, inv_b2, bf16=True)
+        exact = ck.mean_shift_step_plain(x.double(), x.double(),
+                                         inv_b2.double(), bf16=True)
+        assert got.shape == x.shape and got.dtype == torch.float32
+        err = (got.double() - exact).abs()
+        err_plain = float((plain.double() - exact).abs().max())
+        slack = _bf16_rounding_slack(x, inv_b2)
+        over = err - (max(2.0 * err_plain, 1e-6) + slack)
+        assert float(over.max()) <= 0.0, (bw, float(err.max()), err_plain,
+                                          int((over > 0).sum()))
+        if n > 1 and bw > 0.05:
+            xb = x.to(torch.bfloat16).double()
+            unrounded = ck.mean_shift_step_plain(xb, xb, inv_b2.double())
+            assert (float(err.mean())
+                    < float((got.double() - unrounded).abs().mean()))
+
+
+# three_nn (ops.pointnet2) launches K1 at k = 3 with its distances: held
+# to the plain top-k (`compare_with_plain`: no set differs outside a
+# near-tie), euclidean distances the roots of the squared ones.
+@pytest.mark.cuda
+def test_three_nn_launches_k1(cuda):
+    from sednet_tpu_torch.ops.pointnet2 import three_nn
+
+    rng = np.random.RandomState(14)
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 3001, 3)).astype(
+        np.float32)).to(cuda)
+    before = flash_topk.launches
+    dist, idx = three_nn(pts, pts[:, :1500].contiguous())
+    torch.cuda.synchronize()
+    assert flash_topk.launches == before + 1
+    _, sq = flash_topk(pts, pts[:, :1500].contiguous(), 3,
+                       return_distances=True)
+    cmp = compare_with_plain(pts, pts[:, :1500], 3, idx, sq)
+    assert cmp["bad_rows"] == 0, cmp
+    torch.testing.assert_close(dist, torch.sqrt(sq.clamp_min(0.0)))
+
+
 # K3's lowest-index rule on exact ties, where the row and column counts
 # differ and where the rows fill less than one 64-row tile; a cluster's
 # four blocks merge their partial maxima by the same rule.

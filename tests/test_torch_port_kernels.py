@@ -178,6 +178,56 @@ def test_mean_shift_step_batched_plain_matches_pallas(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+def _clustered(rng, b, n, e, k=5, noise=0.05):
+    """b shapes of n unit rows around k directions (the embeddings'
+    shape), as JAX's bf16 test draws them (tests/test_pallas.py)."""
+    out = []
+    for _ in range(b):
+        dirs = _unit(rng, k, e)
+        x = dirs[rng.randint(0, k, n)] + noise * rng.randn(n, e)
+        out.append(x / np.linalg.norm(x, axis=1, keepdims=True))
+    return np.stack(out).astype(np.float32)
+
+
+# The bf16 branch (`ms_bf16`): the plain version against JAX's Pallas step
+# with bf16=True in interpret mode (tests/test_pallas.py:77-82), one shape
+# and batched, at widths 12, 16 and 140 and a row count that is no block
+# multiple. The roundings are the same (new_x and x to bf16, k summed in
+# float32 before its bf16 rounding); the float32 sums run in other orders,
+# measured 8e-6 apart at most: atol 3e-5. Each side stays within 3e-5 of
+# the same function in float64 on the bf16-rounded inputs, and both differ
+# from the float32 step by far more (the branch is taken).
+@pytest.mark.parametrize("b,n,e", [(1, 400, 16), (1, 300, 12), (3, 257, 140)])
+def test_mean_shift_step_bf16_plain_matches_pallas(rng, b, n, e):
+    x = _clustered(rng, b, n, e)
+    bw = np.linspace(0.1, 0.3, b).astype(np.float32)
+    if b == 1:
+        want = np.asarray(mean_shift_step_pallas(
+            jnp.asarray(x[0]), jnp.asarray(x[0]), jnp.float32(bw[0]),
+            row_block=128, col_block=256, bf16=True, interpret=True))[None]
+        got = ck.mean_shift_step(torch.from_numpy(x[0]),
+                                 torch.from_numpy(x[0]), float(bw[0]),
+                                 bf16=True)[None]
+    else:
+        want = np.asarray(mean_shift_step_pallas_batched(
+            jnp.asarray(x), jnp.asarray(x), jnp.asarray(bw), row_block=128,
+            col_block=256, bf16=True, interpret=True))
+        got = ck.mean_shift_step_batched(torch.from_numpy(x),
+                                         torch.from_numpy(x),
+                                         torch.from_numpy(bw), bf16=True)
+    inv_b2 = 1.0 / torch.from_numpy(bw) ** 2
+    x64 = torch.from_numpy(x).double()
+    exact = ck.mean_shift_step_plain(x64, x64, inv_b2.double(),
+                                     bf16=True).numpy()
+    f32 = ck.mean_shift_step_plain(torch.from_numpy(x), torch.from_numpy(x),
+                                   inv_b2).numpy()
+    errs = {"plain": float(np.abs(got.numpy() - exact).max()),
+            "pallas": float(np.abs(want - exact).max())}
+    assert max(errs.values()) <= 3e-5, errs
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5)
+    assert np.abs(got.numpy() - f32).max() > 1e-4
+
+
 def _tie_heavy(rng, r, c, e=16, vocab=7):
     voc = _unit(rng, vocab, e)
     return voc[rng.randint(0, vocab, r)], voc[rng.randint(0, vocab, c)]

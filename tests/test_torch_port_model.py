@@ -127,3 +127,37 @@ def test_forward_returns_unit_embeddings(rng):
     assert emb.shape == (2, 256, 128) and lp.shape == (2, 256, 6)
     assert edge.shape == (2, 256, 2)
     torch.testing.assert_close(emb.norm(dim=-1), torch.ones(2, 256))
+
+
+# The normal head (`predict_normal`): JAX's initial parameters with the head,
+# written as a flat npz, carried into the port by weights.py; the forward's
+# normals_pred (unit rows) at atol 1e-4, as the other heads; the port's
+# build_model builds it and the bundle forward returns it under JAX's key.
+def test_normal_head_matches_jax(tmp_path):
+    import jax
+
+    from sednet_tpu.train import save_params_npz as jax_save_npz
+    from sednet_tpu_torch.export import _Forward
+    from sednet_tpu_torch.train import build_model as torch_build_model
+
+    _, x = headline_shapes(1, 256)
+    jcfg = JaxConfig(num_points=256, knn=16, embed=32, predict_normal=True)
+    jmodel = build_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(3), jnp.asarray(x))["params"]
+    out = jmodel.apply({"params": params}, jnp.asarray(x))
+    path = str(tmp_path / "normal.npz")
+    jax_save_npz(path, params)
+    model = load_npz(path, "", Config(knn=16, embed=32, predict_normal=True),
+                     device="cpu")
+    assert {"normal_conv1.weight", "normal_gn.weight",
+            "normal_conv2.bias"} <= set(model.state_dict())
+    with torch.no_grad():
+        t_out = model(torch.from_numpy(x))
+        bundle_out = _Forward(model)(torch.from_numpy(x))
+    np.testing.assert_allclose(t_out.normals_pred.numpy(),
+                               np.asarray(out.normals_pred), atol=1e-4)
+    torch.testing.assert_close(t_out.normals_pred.norm(dim=-1),
+                               torch.ones(1, 256))
+    assert torch.equal(bundle_out["normals_pred"], t_out.normals_pred)
+    built = torch_build_model(Config(knn=16, embed=32, predict_normal=True))
+    assert set(built.state_dict()) == set(model.state_dict())

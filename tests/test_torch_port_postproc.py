@@ -272,3 +272,54 @@ def test_process_shape_and_arg2mesh_write_jax_files(fixture, tmp_path):
     assert "paras/param_7.txt" in trees["port"]
     for path, data in trees["jax"].items():
         assert trees["port"][path] == data, path
+
+
+def _merged_shape(rng):
+    """A cloud whose instance 0 holds the two faces of a slab (over-merged,
+    80% of the points; opposite normals), with a small instance 1 and types
+    1 (plane) and 2."""
+    n = 600
+    pts, nrm = np.zeros((n, 3), np.float32), np.zeros((n, 3), np.float32)
+    part = np.repeat(np.arange(3), [240, 240, 120])
+    for p in range(2):
+        rows = part == p
+        pts[rows] = rng.uniform(0, 0.3, (rows.sum(), 3))
+        pts[rows, 2] = 0.1 * p
+        nrm[rows, 2] = 1.0 - 2.0 * p
+    small = part == 2
+    pts[small] = rng.uniform(2, 3, (small.sum(), 3))
+    nrm[small] = rng.randn(small.sum(), 3)
+    nrm[small] /= np.linalg.norm(nrm[small], axis=1, keepdims=True)
+    insts = np.where(part == 2, 1, 0).astype(np.int64)
+    types = np.where(part == 2, 2, 1).astype(np.int64)
+    return pts, nrm, insts, types
+
+
+# resplit_instances on JAX's subsamples (the permutation of fold_in(key, k)
+# for the k-th instance id): the same labels, the merged instance split in
+# two, one keeping its id, the small one left alone; a ratio above the merged
+# instance's share leaves every label as it was.
+def test_resplit_instances_matches_jax(rng):
+    import jax
+    import torch
+
+    from sednet_tpu.postproc.inst_cluster import resplit_instances as jax_rs
+    from sednet_tpu_torch.postproc.inst_cluster import subsample_size
+
+    pts, nrm, insts, types = _merged_shape(rng)
+    key = jax.random.PRNGKey(3)
+    sels = {}
+    for k, pid in enumerate(np.unique(insts)):
+        rows = int((insts == pid).sum())
+        m = min(subsample_size(rows), rows)
+        sels[int(pid)] = torch.from_numpy(np.array(jax.random.permutation(
+            jax.random.fold_in(key, k), rows)[:m]))
+    want = jax_rs(pts, nrm, insts, types, key=key)
+    got = pp_port.resplit_instances(pts, nrm, insts, types, device="cpu",
+                                    sels=sels)
+    np.testing.assert_array_equal(got, want)
+    assert sorted(np.unique(got[insts == 0])) == [0, 2]
+    assert (got[insts == 1] == 1).all()
+    same = pp_port.resplit_instances(pts, nrm, insts, types, device="cpu",
+                                     ratio_thresh=0.9, sels=sels)
+    np.testing.assert_array_equal(same, insts)

@@ -211,7 +211,31 @@ def _own_labels(srv, x, n, gen):
     return guard_mean_shift(
         emb, num_samples=min(cfg.ms_num_samples, n), quantile=cfg.ms_quantile,
         iterations=cfg.ms_iterations, max_clusters=cfg.ms_max_clusters - 1,
-        retry_factor=cfg.ms_retry_factor, tol=cfg.ms_tol, generator=gen)
+        retry_factor=cfg.ms_retry_factor, bf16=cfg.ms_bf16, tol=cfg.ms_tol,
+        generator=gen)
+
+
+# A bundle whose config snapshot sets ms_bf16 clusters with bf16 tile
+# inputs (JAX's server passes bf16=cfg.ms_bf16, sednet_tpu/serve.py:136):
+# the labels of the port's own bf16 clustering, where the port once
+# refused such a bundle.
+def test_server_clusters_under_ms_bf16(bundles, tmp_path):
+    bdir = str(tmp_path / "bf16_bundle")
+    shutil.copytree(bundles["tdir"], bdir)
+    with open(os.path.join(bdir, "meta.json")) as f:
+        meta = json.load(f)
+    meta["config"]["ms_bf16"] = True
+    with open(os.path.join(bdir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    srv = serve.BundleServer(bdir, cluster=True, device="cpu")
+    assert srv.cfg.ms_bf16
+    pts = _cloud(1)
+    out = srv.predict([pts])
+    x, _ = srv._pad([pts])
+    gen = serve.request_generators(torch.Generator().manual_seed(0), 1)[0]
+    want = _own_labels(srv, x, N, gen)
+    assert out[0]["instances"] == want.labels.tolist()
+    assert out[0]["num_instances"] == want.num_clusters >= 1
 
 
 def test_server_cluster_labels(bundles):
@@ -259,8 +283,9 @@ def test_http_round_trip(bundles, capsys):
             h = json.loads(r.read())
         assert h == {"ok": True, "batch": 2, "num_points": N, "channels": 6}
         logged = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert set(logged["launches"]) == {"K1", "K2", "K2b", "K3", "K4",
-                                           "K5", "K6", "K6b"}
+        assert set(logged["launches"]) == {"K1", "K2", "K2b", "K2 bf16",
+                                           "K2b bf16", "K3", "K4", "K5",
+                                           "K6", "K6b"}
 
         pts = _cloud(2)
         req = urllib.request.Request(

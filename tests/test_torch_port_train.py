@@ -228,7 +228,6 @@ def test_flat_from_params_inverts_params_from_flat(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("model_bf16", True),
-                                         ("predict_normal", True),
                                          ("factored_gn", False)])
 def test_build_model_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match=field):
@@ -454,3 +453,30 @@ def test_train_preloads_tolerantly_and_resumes_the_optimizer(trained,
     st = state.optimizer.state_dict()
     assert {int(s["step"]) for s in st["state"].values()} == {4}
     assert history[0]["lr"] == 3e-4
+
+
+# The normal head (`predict_normal`) feeds no loss term: jax.grad gives its
+# parameters a gradient of 0, and optax's AdamW still decays them. The
+# port's step fills those gradients with zeros (torch's AdamW skips a
+# parameter whose .grad is None), so one step moves each of them as
+# optax's AdamW moves it on a zero gradient (atol 1e-7).
+def test_train_step_decays_the_normal_head_as_optax():
+    cfg = Config(**CFG_KW, predict_normal=True)
+    jcfg = JaxConfig(**CFG_KW, predict_normal=True)
+    model = ttrain.init_like_flax(ttrain.build_model(cfg),
+                                  torch.Generator().manual_seed(0))
+    head = {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.startswith("normal_")}
+    optimizer = ttrain.make_optimizer(cfg, model.parameters())
+    ttrain.make_train_step(model, optimizer, cfg)(
+        ttrain.to_device(_train_batch(), "cpu"),
+        generator=torch.Generator().manual_seed(1))
+    params = {k: jnp.asarray(v.numpy()) for k, v in head.items()}
+    opt = jtrain.make_optimizer(jcfg)
+    updates, _ = opt.update(jax.tree.map(jnp.zeros_like, params),
+                            opt.init(params), params)
+    want = optax.apply_updates(params, updates)
+    for k, v in want.items():
+        got = model.state_dict()[k].numpy()
+        assert not np.array_equal(got, head[k].numpy()) or not head[k].any()
+        np.testing.assert_allclose(got, np.asarray(v), atol=1e-7, err_msg=k)
