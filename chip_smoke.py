@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(--parent DIR: an older checkout, e.g. unpacked with `git archive` into
+build/parent, whose K6b and bf16 mean-shift step are timed beside this
+tree's on the same inputs, as far as its C interfaces allow.)
 
 Phases, each printing one JSON line (any failure raises, so the exit code
 is not 0):
@@ -153,8 +157,10 @@ is not 0):
              the same inputs, both held to the JAX package's bars, shapes/s
              of each and the share of labels that change; K2 bf16 at
              (10000, 128) and K2b bf16 at (8, 10000, 128) and (8, 10000,
-             140 at 160) against the plain bf16 version by the float64
-             rule, timed beside attention in bf16 and their bound; the
+             140 at 144) against the plain bf16 version by the float64
+             rule and on three launches (the same bits), timed beside
+             attention in bf16, their bound and, with --parent DIR, the
+             parent tree's bf16 kernel, with the achieved TFLOP/s; the
              serve phase's bundle with ms_bf16 set answering one clustered
              request (K2 bf16) with the labels of the port's own
              clustering;
@@ -172,10 +178,11 @@ is not 0):
              built with g++ here, its writer byte for byte np.savetxt's.
 
 The line before the last is the `kernels` summary, the last line the
-device record. `--parent DIR` (an older checkout with the atomic K6b of
-PRs 9-12, e.g. unpacked with `git archive` into build/parent; a tree that
-declares another C interface for it is refused) adds that tree's K6b
-timing to `train`.
+device record. `--parent DIR` (an older checkout, e.g. unpacked with
+`git archive` into build/parent) adds that tree's kernels on the same
+inputs where its C interfaces match (`parent_parts`): its atomic K6b to
+`train`, its bf16 mean-shift step to `ms_bf16`; a tree with neither is
+refused.
 Without a CUDA device, or outside a checkout of the repo, it exits with
 an error and prints no result. nvcc's full register report is in
 `build.log` beside the built library.
@@ -282,7 +289,8 @@ BATCH, N_POINTS, K = 8, 10000, 64
 HEADLINE_REPS = 3   # timed headline batches (their spread is about 1%)
 BIG_BATCH, BIG_POINTS = 2, 32768   # the matrix-free eval's clouds
 DEVICE = "cuda"
-PARENT_TREE = None  # --parent DIR: an older checkout whose K6b `train` times
+PARENT_TREE = None  # --parent DIR: an older checkout whose K6b (`train`)
+#                     and bf16 mean-shift step (`ms_bf16`) the smoke times
 BIG_MEM_GIB = 4.0   # one dense 32768 x 32768 float32 affinity
 
 
@@ -2847,15 +2855,74 @@ def _declared_signature(root, name):
     return None
 
 
+# The C interface of the bf16 mean-shift step: q, x, inv_b2, then B, N, E,
+# then out and the stream.
+PARENT_MS_BF16_SIGNATURE = ("_P",) * 3 + ("_I",) * 3 + ("_P", "_P")
+
+
+def parent_parts(root):
+    """What the smoke can time of the tree at `root`: its K6b (`k6b`, the
+    atomic kernel's interface only) and its bf16 mean-shift step
+    (`ms_bf16`), each by the C interface its `_build.py` declares."""
+    return {"k6b": _declared_signature(
+                root, "sednet_gather_reduce_backward") == PARENT_K6B_SIGNATURE,
+            "ms_bf16": _declared_signature(
+                root, "sednet_mean_shift_step_bf16")
+            == PARENT_MS_BF16_SIGNATURE}
+
+
 def check_parent_tree(root):
-    """Raise ValueError unless the tree at `root` declares the atomic K6b's
-    C interface (`PARENT_K6B_SIGNATURE`), the only one `parent_k6b` binds."""
-    declared = _declared_signature(root, "sednet_gather_reduce_backward")
-    if declared != PARENT_K6B_SIGNATURE:
+    """Raise ValueError unless the tree at `root` declares one of the C
+    interfaces the smoke binds (`parent_parts`)."""
+    if not any(parent_parts(root).values()):
         raise ValueError(
-            f"parent_k6b: {root} declares sednet_gather_reduce_backward"
-            f"{declared}; only the atomic kernel's "
-            f"{PARENT_K6B_SIGNATURE} can be bound")
+            f"{root} declares neither the atomic K6b's "
+            f"{PARENT_K6B_SIGNATURE} nor the bf16 mean-shift step's "
+            f"{PARENT_MS_BF16_SIGNATURE}: nothing of it can be bound")
+
+
+def _build_parent_source(root, name, lib_name):
+    """csrc/`name` of the tree at `root` built alone with this tree's nvcc
+    flags into build/<lib_name>/ (it includes the parent's own headers)."""
+    from sednet_tpu_torch.ops import _build
+
+    src = os.path.join(root, "sednet_tpu_torch", "csrc", name)
+    out = os.path.join(ROOT, "build", lib_name, f"lib{lib_name}.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", src, "-o",
+                    out], check=True, capture_output=True, timeout=600)
+    return out
+
+
+def parent_ms_bf16(root):
+    """The parent tree's bf16 mean-shift step (root: an older checkout,
+    e.g. unpacked with `git archive` into build/parent): its
+    csrc/mean_shift_bf16.cu built alone into build/ms_bf16_parent/ and
+    bound by ctypes (`PARENT_MS_BF16_SIGNATURE`). Returns call(q, x,
+    inv_b2, out) on bf16 (B, N, E) inputs at a kernel width, the launch
+    alone."""
+    import ctypes
+
+    import torch
+
+    if not parent_parts(root)["ms_bf16"]:
+        raise ValueError(f"parent_ms_bf16: {root} declares no "
+                         f"{PARENT_MS_BF16_SIGNATURE} bf16 step")
+    path = _build_parent_source(root, "mean_shift_bf16.cu", "ms_bf16_parent")
+    fn = ctypes.CDLL(path).sednet_mean_shift_step_bf16
+    types = {"_P": ctypes.c_void_p, "_I": ctypes.c_int}
+    fn.argtypes = [types[t] for t in PARENT_MS_BF16_SIGNATURE]
+    fn.restype = ctypes.c_int
+
+    def call(q, x, inv_b2, out):
+        b, n, e = x.shape
+        err = fn(q.data_ptr(), x.data_ptr(), inv_b2.data_ptr(), b, n, e,
+                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent bf16 mean-shift step: CUDA error {err}")
+        return out
+
+    return call
 
 
 def parent_k6b(root):
@@ -2869,15 +2936,11 @@ def parent_k6b(root):
     import ctypes
 
     import torch
-    from sednet_tpu_torch.ops import _build
 
-    check_parent_tree(root)
-    src = os.path.join(root, "sednet_tpu_torch", "csrc",
-                       "gather_reduce_bwd.cu")
-    out = os.path.join(ROOT, "build", "k6b_parent", "libk6b_parent.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", src, "-o",
-                    out], check=True, capture_output=True, timeout=600)
+    if not parent_parts(root)["k6b"]:
+        raise ValueError(f"parent_k6b: {root} declares no atomic K6b "
+                         f"{PARENT_K6B_SIGNATURE}")
+    out = _build_parent_source(root, "gather_reduce_bwd.cu", "k6b_parent")
     fn = ctypes.CDLL(out).sednet_gather_reduce_backward
     types = {"_P": ctypes.c_void_p, "_I": ctypes.c_int}
     fn.argtypes = [types[t] for t in PARENT_K6B_SIGNATURE]
@@ -3356,7 +3419,8 @@ def phase_train(models, card):
 
     order = locality_order(x[..., :3].contiguous())
     cot_gen = torch.Generator().manual_seed(TRAIN_SEED)
-    parent = parent_k6b(PARENT_TREE) if PARENT_TREE else None
+    parent = (parent_k6b(PARENT_TREE)
+              if PARENT_TREE and parent_parts(PARENT_TREE)["k6b"] else None)
     k6b = [check_gather_reduce_backward(
         name, a, flash_topk(g, g, K, metric=metric), order, cot_gen, parent)
         for name, g, a, metric in _fused_layer_inputs(model, x)]
@@ -3829,29 +3893,36 @@ def bf16_bound(b, n, e, e_run):
             "bound_run_width_ms": 4e3 * b * n * n * e_run / PEAK_BF16_FLOPS}
 
 
-def check_k2_bf16(case, x_e, bw):
+def check_k2_bf16(case, x_e, bw, parent=None):
     """K2's (one shape, x_e (1, N, E)) or K2b's (a batch) bf16 kernel on
-    x_e padded once to the kernel width, as the loops pad it, against the
-    plain bf16 version at E by `f64_errors`' rule: against the same
-    function in float64 on the bf16-rounded inputs, at most twice the
-    plain version's error. Timed: the call, 20 calls' device time, the
-    plain version, attention in bf16 (the same normalised kernel-weighted
-    mean) as the yardstick, and the bound."""
+    x_e padded once to the kernel width and its columns cast to bf16 once,
+    as the loops do, against the plain bf16 version at E by `f64_errors`'
+    rule: against the same function in float64 on the bf16-rounded inputs,
+    at most twice the plain version's error; and the same bits on three
+    launches. Timed: the call, 20 calls' device time (`device_ms`, the
+    query's cast included), the launch alone (`kernel_ms`) and, given
+    `parent` (`parent_ms_bf16`), the parent tree's launch on the same bf16
+    inputs at its own kernel width (`parent_kernel_ms`); the plain version, attention in bf16 (the
+    same normalised kernel-weighted mean) as the yardstick, the bound and
+    the achieved TFLOP/s of the products."""
     import torch
     import torch.nn.functional as F
+    from sednet_tpu_torch.ops import _build
     from sednet_tpu_torch.ops import cuda_kernels as ck
 
     b, n, e = x_e.shape
-    xp = ck.kernel_width(x_e)
+    xp = ck.kernel_width(x_e, bf16=True)
+    cols = ck.step_columns(xp, True)
     inv_b2 = 1.0 / (bw * bw)
     if b == 1:
         def fn():
-            return ck.mean_shift_step(xp[0], xp[0], bw[0], bf16=True)[None]
+            return ck.mean_shift_step(xp[0], cols[0], bw[0], bf16=True)[None]
     else:
         def fn():
-            return ck.mean_shift_step_batched(xp, xp, bw, bf16=True)
+            return ck.mean_shift_step_batched(xp, cols, bw, bf16=True)
 
     out = fn()
+    again = [fn() for _ in range(2)]
     got = out[..., :e]
     plain = ck.mean_shift_step_plain(x_e, x_e, inv_b2, bf16=True)
     exact = ck.mean_shift_step_plain(x_e.double(), x_e.double(),
@@ -3859,6 +3930,9 @@ def check_k2_bf16(case, x_e, bw):
     torch.cuda.synchronize()
     if float(out[..., e:].abs().sum()) != 0.0:
         raise AssertionError(f"{case}: padding columns not zero")
+    if not all(torch.equal(out, a) for a in again):
+        raise AssertionError(f"{case}: three launches differ")
+    del again
     xb = x_e.to(torch.bfloat16)
     qb = (x_e * inv_b2[:, None, None]).to(torch.bfloat16)
 
@@ -3867,17 +3941,44 @@ def check_k2_bf16(case, x_e, bw):
             qb[:, None], xb[:, None], xb[:, None], scale=1.0)[:, 0].float(),
             dim=-1, eps=1e-12)
 
+    qk = xp.to(torch.bfloat16)
+    ib2 = inv_b2.to(torch.float32).contiguous()
+    raw = torch.empty_like(xp)
+    lib = _build.lib()
+
+    def kernel():
+        _build.check(lib.sednet_mean_shift_step_bf16(
+            qk.data_ptr(), cols.data_ptr(), ib2.data_ptr(), b, n,
+            xp.shape[-1], raw.data_ptr(), _build.stream_of(xp)), case)
+
+    flops = 4.0 * b * n * n * e
     rec = {"case": case, "shape": [b, n, e], "run_width": xp.shape[-1],
            "max_abs_err": float((got - plain).abs().max()),
            "vs": "the plain bf16 version (held by the float64 rule)",
            **f64_errors(case, got, plain, exact),
+           "same_bits_3_launches": True,
            "ms": time_ms(fn), "device_ms": burst_ms(fn),
+           "kernel_ms": burst_ms(kernel),
            "plain_ms": time_ms(lambda: ck.mean_shift_step_plain(
                x_e, x_e, inv_b2, bf16=True), reps=3),
            "library_ms": time_ms(sdpa),
+           "library_device_ms": burst_ms(sdpa),
            "library": "scaled_dot_product_attention on bf16 inputs",
            **bf16_bound(b, n, e, xp.shape[-1])}
-    del out, got, plain, exact
+    rec["tflops"] = flops / (rec["kernel_ms"] * 1e-3) / 1e12
+    rec["tflops_run_width"] = rec["tflops"] * xp.shape[-1] / e
+    if parent is not None:
+        # the parent's kernel takes multiples of 32 (140 at 160)
+        xq = _build.pad_width(x_e).to(torch.bfloat16)
+        pout = torch.empty(xq.shape, device=xq.device)
+        parent(xq, xq, ib2, pout)
+        torch.cuda.synchronize()
+        rec["parent_run_width"] = xq.shape[-1]
+        rec["parent_kernel_ms"] = burst_ms(lambda: parent(xq, xq, ib2, pout))
+        rec["parent_max_abs_diff"] = float(
+            (pout[..., :e] - raw[..., :e]).abs().max())
+        del pout, xq
+    del out, got, plain, exact, raw, qk
     return rec
 
 
@@ -3924,17 +4025,43 @@ def _bf16_server(bundle, x_np):
     return rec
 
 
-def phase_ms_bf16(models, shapes, x, emb):
-    """`ms_bf16`: the reference-default eval (bench.py's config 2, 8 x
-    10000) with ms_bf16 on and off on the same inputs (K2b bf16 then K3;
-    the f32 run K2b), each held to the JAX package's bars across keys;
-    K2 bf16 at (10000, 128) and K2b bf16 at (8, 10000, 128) and (8, 10000,
-    140 at 160) against the plain bf16 version; the serve phase's bundle
-    with ms_bf16 answering one clustered request."""
+def ms_bf16_inputs(models, x, emb):
+    """The inputs of the `ms_bf16` phase's kernel cases: the headline
+    embeddings' bandwidths (as `segment_batch` draws them), and the
+    eval's 140-d enriched embeddings with theirs (as `cluster_batch` draws
+    them). Returns (bw, emb_e, bw_e)."""
     import numpy as np
     import torch
     from sednet_tpu_torch.cluster.mean_shift import compute_bandwidth
     from sednet_tpu_torch.predict import HEADLINE
+
+    ns = HEADLINE.ms_num_samples
+    bw = torch.stack([torch.clamp_min(compute_bandwidth(
+        emb[i], ns, np.float32(HEADLINE.ms_quantile),
+        generator=torch.Generator().manual_seed(i)), 0.003)
+        for i in range(emb.shape[0])])
+    emb_e, esels = eval_subsamples(models, x)
+    bw_e = torch.stack([torch.clamp_min(compute_bandwidth(
+        emb_e[i], ns, np.float32(HEADLINE.ms_quantile), sel=esels[i]), 0.003)
+        for i in range(emb_e.shape[0])])
+    return bw, emb_e, bw_e
+
+
+# timed batches of each run of the ms_bf16 phase's eval, after its first
+MS_BF16_REPS = 5
+
+
+def phase_ms_bf16(models, shapes, x, emb):
+    """`ms_bf16`: the reference-default eval (bench.py's config 2, 8 x
+    10000) with ms_bf16 on and off on the same inputs (K2b bf16 then K3;
+    the f32 run K2b), each timed over MS_BF16_REPS batches and held to the JAX package's bars across keys;
+    K2 bf16 at (10000, 128) and K2b bf16 at (8, 10000, 128) and (8, 10000,
+    140 at 144) against the plain bf16 version, each on three launches,
+    and with --parent beside the parent tree's kernel (`check_k2_bf16`);
+    the serve phase's bundle with ms_bf16 answering one clustered
+    request."""
+    import numpy as np
+    import torch
 
     batch = {k: np.stack([s[k] for s in shapes])
              for k in ("points", "normals", "labels", "prim")}
@@ -3945,30 +4072,26 @@ def phase_ms_bf16(models, shapes, x, emb):
     runs = {}
     for name, bf16 in (("f32", False), ("bf16", True)):
         rec, labels, _ = phase_predict(
-            f"ms_bf16/{name}", models, batch, (x0s, sels), reps=1,
+            f"ms_bf16/{name}", models, batch, (x0s, sels), reps=MS_BF16_REPS,
             cfg=predict_cfg(ms_bf16=bf16), profiled=False)
         runs[name] = (rec, labels)
     f32, b16 = runs["f32"][0], runs["bf16"][0]
     ari = [_ari(a, b) for a, b in zip(runs["f32"][1], runs["bf16"][1])]
 
-    ns = HEADLINE.ms_num_samples
-    bw = torch.stack([torch.clamp_min(compute_bandwidth(
-        emb[i], ns, np.float32(HEADLINE.ms_quantile),
-        generator=torch.Generator().manual_seed(i)), 0.003)
-        for i in range(BATCH)])
-    emb_e, esels = eval_subsamples(models, x)
-    bw_e = torch.stack([torch.clamp_min(compute_bandwidth(
-        emb_e[i], ns, np.float32(HEADLINE.ms_quantile), sel=esels[i]), 0.003)
-        for i in range(BATCH)])
-    k2 = [check_k2_bf16("K2 bf16, one shape E=128", emb[:1], bw[:1])]
-    k2b = [check_k2_bf16("K2b bf16 E=128", emb, bw),
-           check_k2_bf16("K2b bf16, enriched E=140", emb_e, bw_e)]
+    bw, emb_e, bw_e = ms_bf16_inputs(models, x, emb)
+    parent = (parent_ms_bf16(PARENT_TREE) if PARENT_TREE
+              and parent_parts(PARENT_TREE)["ms_bf16"] else None)
+    k2 = [check_k2_bf16("K2 bf16, one shape E=128", emb[:1], bw[:1],
+                        parent)]
+    k2b = [check_k2_bf16("K2b bf16 E=128", emb, bw, parent),
+           check_k2_bf16("K2b bf16, enriched E=140", emb_e, bw_e, parent)]
     del emb_e
     server = _bf16_server(os.path.join(ROOT, "build", "serve_smoke",
                                        "bundle"), x.cpu().numpy())
     ok = (f32["ok"] and b16["ok"] and server["ok"]
           and b16["launches"]["K2b"] == 0 and b16["launches"]["K2"] == 0)
-    keep = ("ok", "shapes_per_s", "batch_s_median", "inst_iou", "type_iou",
+    keep = ("ok", "shapes_per_s", "batch_s_median", "batch_s_min",
+            "batch_s_max", "timing", "inst_iou", "type_iou",
             "inst_recall", "launches", "per_shape", "peak_mem_gib")
     emit({"phase": "ms_bf16", "ok": ok,
           "bf16": {k: b16[k] for k in keep}, "f32": {k: f32[k] for k in keep},
@@ -4455,10 +4578,11 @@ def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one NVIDIA GPU.")
     ap.add_argument("--parent", default=None,
-                    help="an older checkout with the atomic K6b of PRs 9-12 "
-                         "(e.g. unpacked with git archive into "
-                         "build/parent), whose K6b the train phase times on "
-                         "the same inputs")
+                    help="an older checkout (e.g. unpacked with git archive "
+                         "into build/parent) whose kernels the smoke times "
+                         "on the same inputs: an atomic K6b in the train "
+                         "phase, a bf16 mean-shift step in the ms_bf16 "
+                         "phase, as far as its C interfaces match")
     PARENT_TREE = ap.parse_args().parent
     if PARENT_TREE:
         check_parent_tree(PARENT_TREE)
@@ -4565,7 +4689,10 @@ def main():
             "case": main_case["case"], "parity": "ok",
             "cases_held": [c["case"] for c in cases],
             **({"launches_by_path": k1_by_path} if key == "K1" else {}),
-            **({"device_ms": main_case["device_ms"]}
+            **({"device_ms": main_case["device_ms"],
+                "kernel_ms": main_case["kernel_ms"],
+                "tflops": main_case["tflops"],
+                "earlier_kernel_ms": main_case.get("parent_kernel_ms")}
                if key.endswith("bf16") else {}),
             **({"device_ms": main_case["device_ms"],
                 "device_split": main_case["device_split"],

@@ -32,10 +32,12 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sednet_tpu_torch.ops.cuda_kernels import (colmax, kernel_width,
                                                mean_shift_step,
-                                               mean_shift_step_batched)
+                                               mean_shift_step_batched,
+                                               step_columns)
 from sednet_tpu_torch.ops.flash_topk import K_MAX, flash_topk
 from sednet_tpu_torch.ops.guard import guard_sqrt
 
@@ -132,20 +134,43 @@ def epanechnikov_step(new_x, x, bandwidth):
         torch.linalg.vector_norm(out, dim=1, keepdim=True), 1e-12)
 
 
+def _step_inputs(x, width, bf16):
+    """(start, columns) of a loop of gaussian shift steps on x, which is
+    zero past its true width `width` (None: x's own): under bf16 on a CUDA
+    device x's first `width` columns at the bf16 step's kernel width
+    (`kernel_width(..., bf16=True)`: 140 runs at 144 where K1 and K3 take
+    160) and their bf16 rounding (`step_columns`), made once for the loop;
+    otherwise x for both."""
+    if bf16 and x.is_cuda:
+        x = kernel_width(x[..., :width], bf16=True)
+    return x, step_columns(x, bf16)
+
+
+def _to_width(t, w):
+    """A loop's result t, zero past the loop's true width, at width w."""
+    if t.shape[-1] > w:
+        return t[..., :w].contiguous()
+    return F.pad(t, (0, w - t.shape[-1])) if t.shape[-1] < w else t
+
+
 def mean_shift_iterate(x, bandwidth, iterations: int = 50,
                        tol: float = 0.0, *, kernel_type: str = "gaussian",
-                       bf16: bool = False):
+                       bf16: bool = False, width=None):
     """Up to `iterations` mean-shift steps of x (N, E) unit rows, stopping
     early once the max movement is <= tol (0 disables): gaussian on K2
-    (bf16 tile inputs under bf16=True), or epanechnikov."""
+    (bf16 tile inputs under bf16=True), or epanechnikov. width: x's true
+    width where x is zero-padded past it (the bf16 steps then run at their
+    own kernel width); the result has x's width."""
     if kernel_type not in KERNEL_TYPES:
         raise ValueError(f"kernel_type {kernel_type!r} not in {KERNEL_TYPES}")
     bw = torch.as_tensor(bandwidth, dtype=torch.float32, device=x.device)
     if kernel_type == "epanechnikov":
         return _iterate_until(lambda cur: epanechnikov_step(cur, x, bw),
                               x, iterations, tol)
-    return _iterate_until(lambda cur: mean_shift_step(cur, x, bw, bf16=bf16),
-                          x, iterations, tol)
+    start, cols = _step_inputs(x, width, bf16)
+    return _to_width(_iterate_until(
+        lambda cur: mean_shift_step(cur, cols, bw, bf16=bf16), start,
+        iterations, tol), x.shape[-1])
 
 
 def nms_device(centers, x, b: float):
@@ -184,10 +209,10 @@ def nms(centers, x, b: float):
 def mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
                iterations: int = 50, kernel_type: str = "gaussian",
                bandwidth=None, bf16: bool = False, tol: float = 0.0,
-               generator=None, sel=None) -> MeanShiftResult:
+               generator=None, sel=None, width=None) -> MeanShiftResult:
     """One clustering pass (reference: src/mean_shift.py:19-43); a drawn
     bandwidth is clipped at 0.003 (`_MIN_BANDWIDTH`) as JAX's is
-    (`mean_shift.py:298`)."""
+    (`mean_shift.py:298`). width: as in `mean_shift_iterate`."""
     q = np.float32(quantile)
     if bandwidth is None:
         bandwidth = compute_bandwidth(x, num_samples, q, generator=generator,
@@ -195,7 +220,8 @@ def mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
         bandwidth = max(float(bandwidth), _MIN_BANDWIDTH)
     bandwidth = float(bandwidth)
     shifted = mean_shift_iterate(x, bandwidth, iterations, tol,
-                                 kernel_type=kernel_type, bf16=bf16)
+                                 kernel_type=kernel_type, bf16=bf16,
+                                 width=width)
     labels, center_mask, num = nms(shifted, x, bandwidth)
     return MeanShiftResult(shifted, labels, center_mask, num, bandwidth, q)
 
@@ -234,15 +260,16 @@ def _guarded(x, e, first, attempt, *, num_samples, max_clusters,
 
 
 def _attempts(x, sels, *, num_samples, iterations, tol, generator,
-              bandwidth=None, kernel_type="gaussian", bf16=False):
-    """attempt(q, i): one mean-shift pass of x at quantile q with the
-    subsample sels[i] (the last repeats)."""
+              bandwidth=None, kernel_type="gaussian", bf16=False, width=None):
+    """attempt(q, i): one mean-shift pass of x (the kernel-width input, of
+    true width `width`) at quantile q with the subsample sels[i] (the last
+    repeats)."""
     def attempt(q, i):
         return mean_shift(x, num_samples=num_samples, quantile=q,
                           iterations=iterations, kernel_type=kernel_type,
                           bandwidth=bandwidth, bf16=bf16, tol=tol,
                           generator=generator,
-                          sel=sels[min(i, len(sels) - 1)])
+                          sel=sels[min(i, len(sels) - 1)], width=width)
     return attempt
 
 
@@ -263,7 +290,7 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
     attempt = _attempts(x, sel if isinstance(sel, (list, tuple)) else [sel],
                         num_samples=num_samples, iterations=iterations,
                         tol=tol, generator=generator, bandwidth=bandwidth,
-                        kernel_type=kernel_type, bf16=bf16)
+                        kernel_type=kernel_type, bf16=bf16, width=e)
     return _guarded(x, e, attempt(np.float32(quantile), 0), attempt,
                     num_samples=num_samples, max_clusters=max_clusters,
                     retry_factor=retry_factor)
@@ -272,9 +299,9 @@ def guard_mean_shift(x, *, num_samples: int = 10000, quantile=0.015,
 @dataclass
 class ClusterPending:
     """What `cluster_batch_async` leaves for `cluster_batch_finalize`."""
-    x: torch.Tensor             # (B, N, kernel width) unit rows
+    x: torch.Tensor             # (B, N, K1's and K3's width) unit rows
     width: int                  # their true width E
-    shifted: torch.Tensor       # (B, N, kernel width) after the shift loop
+    shifted: torch.Tensor       # (B, N, the same width) after the shifts
     bandwidth: torch.Tensor     # (B,) on the device
     sels: list                  # per shape, the subsamples of each attempt
     generator: object           # draws the retries' subsamples
@@ -297,9 +324,10 @@ def cluster_batch_async(x, *, num_samples: int = 10000, quantile=0.015,
     bw = torch.stack([torch.clamp_min(compute_bandwidth(
         x[i], num_samples, np.float32(quantile), generator=generator,
         sel=sels[i][0]), _MIN_BANDWIDTH) for i in range(b)])
-    shifted = _iterate_on_device(
-        lambda cur: mean_shift_step_batched(cur, x, bw, bf16=bf16), x,
-        iterations, tol)
+    start, cols = _step_inputs(x, e, bf16)
+    shifted = _to_width(_iterate_on_device(
+        lambda cur: mean_shift_step_batched(cur, cols, bw, bf16=bf16), start,
+        iterations, tol), x.shape[-1])
     return ClusterPending(x, e, shifted, bw, sels, generator)
 
 
@@ -327,7 +355,8 @@ def cluster_batch_finalize(pending: ClusterPending, *,
                                 np.float32(quantile))
         attempt = _attempts(x[i], pending.sels[i], num_samples=num_samples,
                             iterations=iterations, tol=tol,
-                            generator=pending.generator, bf16=bf16)
+                            generator=pending.generator, bf16=bf16,
+                            width=pending.width)
         res = _guarded(x[i], pending.width, first, attempt,
                        num_samples=num_samples, max_clusters=max_clusters,
                        retry_factor=retry_factor)

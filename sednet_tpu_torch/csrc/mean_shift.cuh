@@ -1,13 +1,13 @@
-// The mean-shift step's kernel (K2/K2b) around its tile products, shared by
-// the float32 step (mean_shift.cu, the three-term TF32 split) and the bf16
-// step (mean_shift_bf16.cu, the Pallas kernels' bf16=True branch): the walk
-// over x's tiles, the cluster's reduction of (num, den) and the
-// normalisation. For every shape b and query row i:
+// The float32 mean-shift step's kernel (K2/K2b, mean_shift.cu, the
+// three-term TF32 split) around its tile products: the walk over x's
+// tiles, the cluster's reduction of (num, den) and the normalisation. It
+// serves that one form; the bf16 step (mean_shift_bf16.cu) has a kernel of
+// its own on wgmma and TMA. For every shape b and query row i:
 //
 //   k[i, c]  = exp(max((q_i . x_c - 1) * inv_b2[b], -75))     (c < n)
 //   out[i]   = rownorm(sum_c k[i, c] x_c / max(sum_c k[i, c], 1e-30))
 //
-// with the row norm taken as sqrt(max(|v|^2, 1e-24)); each form says how it
+// with the row norm taken as sqrt(max(|v|^2, 1e-24)); the form says how it
 // rounds the two products.
 //
 // Layout, flash-attention-like: the N x N matrix never leaves registers.
@@ -24,7 +24,7 @@
 // 132 SMs for a single 10000-point shape (157 clusters), where one block
 // per 64 rows gave 157.
 //
-// A form is a Tile type with
+// The form is a Tile type with
 //   T                       the element type of the tiles in shared memory;
 //   pitch<E>()              their row stride in elements (32 banks a
 //                           fragment load);

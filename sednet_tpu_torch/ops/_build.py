@@ -148,18 +148,20 @@ def stream_of(t) -> int:
 
 
 WIDTH_STEP, WIDTH_MAX = 32, 256   # row widths the kernels are compiled for
+BF16_WIDTH_STEP = 16   # the bf16 mean-shift step's: wgmma is 16 deep
 
 
-def pad_width(t):
-    """t (..., E) zero-padded on its last axis to the next multiple of 32
-    (contiguous), as the row-width templates of the kernels take it; zero
-    columns change neither a dot product nor a norm. Raises above 256."""
+def pad_width(t, step: int = WIDTH_STEP):
+    """t (..., E) zero-padded on its last axis to the next multiple of
+    `step` (contiguous), as the row-width templates of the kernels take it
+    (32; the bf16 mean-shift step 16); zero columns change neither a dot
+    product nor a norm. Raises above 256."""
     import torch.nn.functional as F
 
     e = t.shape[-1]
     if not 1 <= e <= WIDTH_MAX:
         raise ValueError(f"row width {e} outside the kernels' [1, {WIDTH_MAX}]")
-    ep = -(-e // WIDTH_STEP) * WIDTH_STEP
+    ep = -(-e // step) * step
     return t if e == ep else F.pad(t, (0, ep - e)).contiguous()
 
 

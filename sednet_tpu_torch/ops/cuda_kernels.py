@@ -6,8 +6,9 @@ Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
   * `mean_shift_step` / `mean_shift_step_batched` -- `mean_shift_step_pallas`
     and `mean_shift_step_pallas_batched`. One CUDA kernel with a batch grid
     axis (`csrc/mean_shift.cu`) serves both, and its bf16 twin
-    (`csrc/mean_shift_bf16.cu`) their `bf16=True` branch; each wrapper
-    counts its own launches (`launches`, `launches_bf16`).
+    (`csrc/mean_shift_bf16.cu`: wgmma on TMA-fed tiles) their `bf16=True`
+    branch; each wrapper counts its own launches (`launches`,
+    `launches_bf16`).
   * `colmax` -- `colmax_pallas` (`csrc/colmax.cu`).
   * `segsum_sorted_scan` -- `segsum_sorted_scan_pallas` (`csrc/segsum.cu`):
     per-destination sums of entries sorted by destination, the A^T v of the
@@ -15,12 +16,12 @@ Counterparts of `sednet_tpu/ops/pallas_kernels.py`:
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 beside it. The kernels are compiled for row widths that are multiples of 32
-up to 256 (the bf16 step's products are 16 deep), as the TPU kernels take
-any width; other widths are padded with
-zero columns up to the next multiple of 32 (the 140-d HPNet-enriched
-embedding runs at 160), which change neither a dot product nor a norm.
-A loop of steps pads once (`kernel_width`) so that no step copies. K5 takes
-any row count.
+up to 256, the bf16 step's for multiples of 16 (its products are 16 deep),
+as the TPU kernels take any width; other widths are padded with zero
+columns up to the next such multiple (the 140-d HPNet-enriched embedding
+runs at 160, at 144 in the bf16 step), which change neither a dot product
+nor a norm. A loop of steps pads once (`kernel_width`) so that no step
+copies. K5 takes any row count.
 """
 from __future__ import annotations
 
@@ -29,12 +30,16 @@ import torch
 from sednet_tpu_torch.ops import _build
 
 
-def kernel_width(x):
+def kernel_width(x, bf16: bool = False):
     """x (..., E) on a CUDA device zero-padded once to the width the
-    kernels run at (`_build.pad_width`); a CPU tensor as it is, since the
-    plain versions take any width. A mean-shift step keeps zero columns
+    kernels run at (`_build.pad_width`: a multiple of 32, or of 16 for the
+    bf16 mean-shift step under bf16=True); a CPU tensor as it is, since
+    the plain versions take any width. A mean-shift step keeps zero columns
     zero, so a loop runs at this width and slices once at its end."""
-    return _build.pad_width(x) if x.is_cuda else x
+    if not x.is_cuda:
+        return x
+    return _build.pad_width(x, _build.BF16_WIDTH_STEP if bf16
+                            else _build.WIDTH_STEP)
 
 
 def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048,
@@ -66,13 +71,29 @@ def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048,
     return out
 
 
+def step_columns(x, bf16: bool = False):
+    """x (..., E) as a loop of mean-shift steps hands it to every step as
+    the columns: under bf16 on a CUDA device its bf16 rounding, made once
+    for the loop (the bf16 kernel reads bf16 columns, and x does not change
+    between steps); otherwise x itself (the CPU's plain version rounds it
+    at each step)."""
+    return x.to(torch.bfloat16) if bf16 and x.is_cuda else x
+
+
 def _ms_launch(new_x, x, inv_b2, bf16):
     _build.require_cuda_f32("mean_shift_step new_x", new_x)
-    _build.require_cuda_f32("mean_shift_step x", x)
+    if not bf16:
+        _build.require_cuda_f32("mean_shift_step x", x)
+    elif (x.dtype != torch.bfloat16 or not x.is_cuda
+          or not x.is_contiguous()):
+        raise ValueError("mean_shift_step x: under bf16 the contiguous bf16 "
+                         "columns of `step_columns` on a CUDA device, got "
+                         f"{x.dtype} on {x.device} "
+                         f"(contiguous={x.is_contiguous()})")
     if new_x.shape != x.shape or x.dim() != 3:
         raise ValueError("mean_shift_step: new_x and x must both be (B, N, E)")
     e = x.shape[-1]
-    q, xp = _build.pad_width(new_x), _build.pad_width(x)
+    q, xp = kernel_width(new_x, bf16), kernel_width(x, bf16)
     inv_b2 = inv_b2.to(device=x.device, dtype=torch.float32).reshape(-1)
     inv_b2 = inv_b2.contiguous()
     if inv_b2.shape[0] != x.shape[0]:
@@ -80,9 +101,9 @@ def _ms_launch(new_x, x, inv_b2, bf16):
     out = torch.empty_like(q)
     lib = _build.lib()
     if bf16:
-        # the casts of the Pallas wrapper (astype(bfloat16)); the kernel
-        # reads bf16 tiles and writes float32
-        q, xp = q.to(torch.bfloat16), xp.to(torch.bfloat16)
+        # the query's cast of the Pallas wrapper (astype(bfloat16)), x's
+        # made once a loop; the kernel reads bf16 tiles and writes float32
+        q = q.to(torch.bfloat16)
         launch = lib.sednet_mean_shift_step_bf16
     else:
         launch = lib.sednet_mean_shift_step
@@ -108,7 +129,9 @@ def mean_shift_step(new_x, x, bandwidth, bf16: bool = False):
     """One mean-shift update of one shape: new_x, x (N, E) unit rows,
     bandwidth a scalar (K2, `mean_shift_step_pallas`). bf16=True runs both
     tile products on bf16 inputs with float32 sums (`csrc/mean_shift_bf16.cu`,
-    the Pallas kernel's `bf16=True`; counted in `launches_bf16`)."""
+    the Pallas kernel's `bf16=True`; counted in `launches_bf16`); on a
+    CUDA device x is then the bf16 columns of `step_columns`, made once a
+    loop (a float32 x raises there)."""
     inv_b2 = _inv_b2(bandwidth, x).reshape(1)
     if x.device.type == "cpu":
         return mean_shift_step_plain(new_x[None], x[None], inv_b2,

@@ -278,8 +278,10 @@ def _bf16_rounding_slack(x, inv_b2):
 
 
 # The bf16 branch (`ms_bf16`, csrc/mean_shift_bf16.cu) for one shape (K2)
-# and a batch (K2b) at widths 12 to 256 (12 and 140 zero-padded to 32 and
-# 160) and row counts that fill no whole 64-row block or 32-column tile,
+# and a batch (K2b) at widths 12 to 256 (12, 40, 140 and 200 zero-padded to
+# 16, 48, 144 and 208: every product shape of P.X, its columns in one
+# product of 64, 128, 192 or 256 and a second of 16, 32 or 48) on the
+# loop's bf16 columns (`step_columns`), and row counts that fill no whole 128-row block or column tile,
 # against the same function in float64 on the bf16-rounded inputs
 # (`mean_shift_step_plain(..., bf16=True)` on float64). Each element errs
 # at most twice as much as the float32 plain version's largest error (at
@@ -290,23 +292,20 @@ def _bf16_rounding_slack(x, inv_b2):
 # smoke holds the kernel to twice the plain error alone, at 10000). And
 # the kernel does round the weights: its mean error against the rounded
 # function is below its mean error against the unrounded one.
-@pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("e", [12, 32, 64, 140, 256])
-@pytest.mark.parametrize("n", [1, 63, 3001])
-def test_mean_shift_bf16_kernel_against_float64(cuda, n, e, b):
+def _bf16_kernel_against_float64(cuda, n, e, b):
     rng = np.random.RandomState(13)
     x = torch.from_numpy(_clustered(rng, b, n, e)).to(cuda)
+    cols = ck.step_columns(x, True)
     for bw in (0.05, 0.15, 0.3):
         bws = torch.full((b,), bw, device=cuda)
         inv_b2 = 1.0 / (bws * bws)
         if b == 1:
             before = ck.mean_shift_step.launches_bf16
-            got = ck.mean_shift_step(x[0], x[0], bws[0], bf16=True)[None]
+            got = ck.mean_shift_step(x[0], cols[0], bws[0], bf16=True)[None]
             assert ck.mean_shift_step.launches_bf16 == before + 1
         else:
             before = ck.mean_shift_step_batched.launches_bf16
-            got = ck.mean_shift_step_batched(x, x, bws, bf16=True)
+            got = ck.mean_shift_step_batched(x, cols, bws, bf16=True)
             assert ck.mean_shift_step_batched.launches_bf16 == before + 1
         plain = ck.mean_shift_step_plain(x, x, inv_b2, bf16=True)
         exact = ck.mean_shift_step_plain(x.double(), x.double(),
@@ -323,6 +322,73 @@ def test_mean_shift_bf16_kernel_against_float64(cuda, n, e, b):
             unrounded = ck.mean_shift_step_plain(xb, xb, inv_b2.double())
             assert (float(err.mean())
                     < float((got.double() - unrounded).abs().mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("e", [12, 32, 40, 64, 112, 140, 200, 240, 256])
+@pytest.mark.parametrize("n", [1, 63, 3001])
+def test_mean_shift_bf16_kernel_against_float64(cuda, n, e, b):
+    _bf16_kernel_against_float64(cuda, n, e, b)
+
+
+# The same rule at the main path's size: a batch of two 10000-row shapes
+# at E = 128 (79 tiles of columns a shape, 158 blocks of query rows).
+@pytest.mark.cuda
+def test_mean_shift_bf16_kernel_against_float64_full_size(cuda):
+    _bf16_kernel_against_float64(cuda, 10000, 128, 2)
+
+
+# The bf16 kernel's sums run in a fixed order (its column split's partials
+# in rank order): three launches give the same bits, one shape (split
+# across a cluster) and a batch, whole and ragged.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,e", [(1, 10000, 128), (3, 3001, 140),
+                                   (2, 777, 256), (1, 63, 32),
+                                   (2, 1001, 200), (1, 3001, 112)])
+def test_mean_shift_bf16_kernel_same_bits(cuda, b, n, e):
+    rng = np.random.RandomState(15)
+    x = torch.from_numpy(_clustered(rng, b, n, e)).to(cuda)
+    bws = torch.full((b,), 0.15, device=cuda)
+    outs = [ck.mean_shift_step_batched(x, ck.step_columns(x, True), bws,
+                                       bf16=True) for _ in range(3)]
+    xp = ck.kernel_width(x, bf16=True)
+    cols = ck.step_columns(xp, True)
+    outs.append(ck.mean_shift_step_batched(xp, cols, bws, bf16=True)[..., :e])
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0]).all()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+# No fallback: a width the bf16 kernel does not take raises, from the
+# wrapper (above 256) and from the C entry point (40, not a multiple of
+# 16), and counts no launch; so do float32 columns under bf16 (the kernel
+# reads the loop's bf16 columns only).
+@pytest.mark.cuda
+def test_mean_shift_bf16_kernel_refuses_widths(cuda):
+    from sednet_tpu_torch.ops import _build
+
+    x = torch.nn.functional.normalize(
+        torch.randn(2, 100, 264, device=cuda), dim=-1)
+    bw = torch.full((2,), 0.2, device=cuda)
+    before = ck.mean_shift_step_batched.launches_bf16
+    with pytest.raises(ValueError):
+        ck.mean_shift_step_batched(x, ck.step_columns(x, True), bw,
+                                   bf16=True)
+    with pytest.raises(ValueError):
+        xc = x[..., :128].contiguous()
+        ck.mean_shift_step_batched(xc, xc, bw, bf16=True)
+    assert ck.mean_shift_step_batched.launches_bf16 == before
+    xb = x[..., :40].contiguous().to(torch.bfloat16)
+    out = torch.empty(2, 100, 40, device=cuda)
+    ib2 = torch.full((2,), 25.0, device=cuda)
+    err = _build.lib().sednet_mean_shift_step_bf16(
+        xb.data_ptr(), xb.data_ptr(), ib2.data_ptr(), 2, 100, 40,
+        out.data_ptr(), _build.stream_of(xb))
+    assert err != 0
+    with pytest.raises(RuntimeError):
+        _build.check(err, "mean_shift_step")
 
 
 # three_nn (ops.pointnet2) launches K1 at k = 3 with its distances: held

@@ -228,6 +228,25 @@ def test_mean_shift_step_bf16_plain_matches_pallas(rng, b, n, e):
     assert np.abs(got.numpy() - f32).max() > 1e-4
 
 
+# The bf16 kernel runs the 140-d enriched embedding at 144 (a multiple of
+# 16, wgmma's depth), the loops padding it once: the plain bf16 step on x
+# zero-padded from 140 to 144 is JAX's Pallas bf16 step at 140 (interpret
+# mode), within the atol of the test above, with the padding columns zero.
+@pytest.mark.parametrize("b", [1, 2])
+def test_mean_shift_step_bf16_plain_at_144_matches_pallas_at_140(rng, b):
+    x = _clustered(rng, b, 257, 140)
+    bw = np.linspace(0.15, 0.25, b).astype(np.float32)
+    want = np.asarray(mean_shift_step_pallas_batched(
+        jnp.asarray(x), jnp.asarray(x), jnp.asarray(bw), row_block=128,
+        col_block=256, bf16=True, interpret=True))
+    xp = _build.pad_width(torch.from_numpy(x), _build.BF16_WIDTH_STEP)
+    assert xp.shape == (b, 257, 144)
+    got = ck.mean_shift_step_batched(xp, xp, torch.from_numpy(bw),
+                                     bf16=True).numpy()
+    assert not got[..., 140:].any()
+    np.testing.assert_allclose(got[..., :140], want, atol=3e-5)
+
+
 def _tie_heavy(rng, r, c, e=16, vocab=7):
     voc = _unit(rng, vocab, e)
     return voc[rng.randint(0, vocab, r)], voc[rng.randint(0, vocab, c)]
@@ -268,6 +287,22 @@ def test_wrappers_reject_wide_rows():
     assert padded.shape == (4, 160) and padded.is_contiguous()
     assert torch.equal(padded[:, :140], x) and not padded[:, 140:].any()
     assert _build.pad_width(torch.zeros(4, 128)).shape == (4, 128)
+
+
+def test_pad_width_bf16_step():
+    # the bf16 mean-shift step takes multiples of 16: 140 -> 144, 12 -> 16,
+    # 128 as it is; the float32 kernels' step stays 32 (140 -> 160)
+    x = torch.ones(3, 140)
+    padded = _build.pad_width(x, _build.BF16_WIDTH_STEP)
+    assert padded.shape == (3, 144) and padded.is_contiguous()
+    assert torch.equal(padded[:, :140], x) and not padded[:, 140:].any()
+    assert _build.pad_width(torch.ones(3, 12), 16).shape == (3, 16)
+    y = torch.ones(3, 128)
+    assert _build.pad_width(y, 16) is y
+    assert _build.pad_width(x).shape == (3, 160)
+    with pytest.raises(ValueError):
+        _build.pad_width(torch.zeros(3, 257), 16)
+    assert ck.kernel_width(x, bf16=True) is x   # a CPU tensor as it is
 
 
 def test_kernel_width_pads_only_for_the_card():
