@@ -1143,9 +1143,11 @@ def phase_predict(name, models, batch, inputs, *, fused=False,
     torch.cuda.synchronize()
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    # the type model keeps the index route (K6) even with the fused encoder
-    need = (("K1", "K2b bf16" if cfg.ms_bf16 else "K2b", "K3", "K6")
-            + (("K4",) if fused else ()))
+    # the type model keeps the index route (K6) even with the fused encoder;
+    # the direct edge convolution (factored_gn off, model_bf16) runs none
+    direct = not cfg.factored_gn or cfg.model_bf16
+    need = (("K1", "K2b bf16" if cfg.ms_bf16 else "K2b", "K3")
+            + (() if direct else ("K6",)) + (("K4",) if fused else ()))
     for key in need:
         if counts[key] <= 0:
             raise AssertionError(f"{name} launched {key} no time")
@@ -2714,9 +2716,10 @@ def phase_predict_bigcloud(models, shapes, inputs):
     if batch["points"].shape[1] <= cfg.spectral_dense_max_n:
         raise AssertionError("predict_bigcloud: the clouds fit the dense "
                              "affinity; the matrix-free path would not run")
-    rec, _, _ = phase_predict("predict_bigcloud", models, batch, inputs,
-                              reps=2, cfg=cfg, ref=REF_BIG_MEAN,
-                              tol=BIG_TOL, trace="predict_bigcloud_trace.json")
+    rec, labels, _ = phase_predict("predict_bigcloud", models, batch, inputs,
+                                   reps=2, cfg=cfg, ref=REF_BIG_MEAN,
+                                   tol=BIG_TOL,
+                                   trace="predict_bigcloud_trace.json")
     rec["peak_mem_limit_gib"] = BIG_MEM_GIB
     emit(rec)
     if not rec["ok"]:
@@ -2725,7 +2728,7 @@ def phase_predict_bigcloud(models, shapes, inputs):
     if rec["peak_mem_gib"] >= BIG_MEM_GIB:
         raise AssertionError(f"predict_bigcloud peak {rec['peak_mem_gib']} "
                              f"GiB >= {BIG_MEM_GIB}")
-    return rec
+    return rec, labels
 
 
 TRAIN_SEED = 9            # the training clouds' stream (not EVAL_STREAM_SEED)
@@ -2860,15 +2863,25 @@ def _declared_signature(root, name):
 PARENT_MS_BF16_SIGNATURE = ("_P",) * 3 + ("_I",) * 3 + ("_P", "_P")
 
 
+# The C interface of K1 before its column-id table (PRs 1-15): q, p, the
+# two batch strides, B, M, N, D, k, metric, w, largest, then the distances,
+# the indices and the stream.
+PARENT_TOPK_SIGNATURE = (("_P", "_P", "_L", "_L") + ("_I",) * 6
+                         + ("_F", "_I", "_P", "_P", "_P"))
+
+
 def parent_parts(root):
     """What the smoke can time of the tree at `root`: its K6b (`k6b`, the
-    atomic kernel's interface only) and its bf16 mean-shift step
-    (`ms_bf16`), each by the C interface its `_build.py` declares."""
+    atomic kernel's interface only), its bf16 mean-shift step (`ms_bf16`)
+    and its K1 without the column-id table (`topk`), each by the C
+    interface its `_build.py` declares."""
     return {"k6b": _declared_signature(
                 root, "sednet_gather_reduce_backward") == PARENT_K6B_SIGNATURE,
             "ms_bf16": _declared_signature(
                 root, "sednet_mean_shift_step_bf16")
-            == PARENT_MS_BF16_SIGNATURE}
+            == PARENT_MS_BF16_SIGNATURE,
+            "topk": _declared_signature(root, "sednet_topk")
+            == PARENT_TOPK_SIGNATURE}
 
 
 def check_parent_tree(root):
@@ -2876,9 +2889,10 @@ def check_parent_tree(root):
     interfaces the smoke binds (`parent_parts`)."""
     if not any(parent_parts(root).values()):
         raise ValueError(
-            f"{root} declares neither the atomic K6b's "
-            f"{PARENT_K6B_SIGNATURE} nor the bf16 mean-shift step's "
-            f"{PARENT_MS_BF16_SIGNATURE}: nothing of it can be bound")
+            f"{root} declares none of the atomic K6b's "
+            f"{PARENT_K6B_SIGNATURE}, the bf16 mean-shift step's "
+            f"{PARENT_MS_BF16_SIGNATURE} and K1's {PARENT_TOPK_SIGNATURE}: "
+            "nothing of it can be bound")
 
 
 def _build_parent_source(root, name, lib_name):
@@ -2921,6 +2935,42 @@ def parent_ms_bf16(root):
         if err:
             raise RuntimeError(f"parent bf16 mean-shift step: CUDA error {err}")
         return out
+
+    return call
+
+
+def parent_topk(root):
+    """The parent tree's K1 without the column-id table (root: an older
+    checkout): its csrc/flash_topk.cu built alone into build/topk_parent/
+    and bound by ctypes (`PARENT_TOPK_SIGNATURE`). Returns call(q, p, k,
+    largest) -> int32 indices, for 2-d or 3-d q and p (self or shared)."""
+    import ctypes
+
+    import torch
+
+    if not parent_parts(root)["topk"]:
+        raise ValueError(f"parent_topk: {root} declares no "
+                         f"{PARENT_TOPK_SIGNATURE} K1")
+    path = _build_parent_source(root, "flash_topk.cu", "topk_parent")
+    fn = ctypes.CDLL(path).sednet_topk
+    types = {"_P": ctypes.c_void_p, "_I": ctypes.c_int,
+             "_L": ctypes.c_longlong, "_F": ctypes.c_float}
+    fn.argtypes = [types[t] for t in PARENT_TOPK_SIGNATURE]
+    fn.restype = ctypes.c_int
+
+    def call(q, p, k, largest=False):
+        q3 = q[None] if q.dim() == 2 else q
+        b, m, d = q3.shape
+        n = p.shape[-2]
+        dist = torch.empty((b, m, k), device=q.device)
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=q.device)
+        err = fn(q3.data_ptr(), p.data_ptr(), m * d,
+                 0 if p.dim() == 2 else n * d, b, m, n, d, k, 0, 1.0,
+                 int(largest), dist.data_ptr(), idx.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K1: CUDA error {err}")
+        return idx
 
     return call
 
@@ -3163,6 +3213,84 @@ class _Maxima:
         graph.gather_reduce = self.saved
 
 
+class _DirectMaxima:
+    """`_Maxima` for the direct edge convolution (`factored_gn` off, or a
+    bf16 model: `models.backbone.edge_conv_direct`), whose max over the K
+    neighbours of leaky_relu(GroupNorm(f)) is a discrete choice too:
+    recorded on one side as the mask (B, N, K, C) of each (row, channel)'s
+    winners with the values they won among, replayed on the other as the
+    mean of the recorded winners' values, with the same near-tie rule for
+    the (row, channel) pairs whose own winners differ (`flips`,
+    `flip_gaps`)."""
+
+    def __init__(self, replay=None):
+        self.masks, self.tables, self.replay = [], [], replay
+        self.flips, self.flip_gaps = [], []
+
+    def __enter__(self):
+        import torch
+        from sednet_tpu_torch.models import backbone
+        from sednet_tpu_torch.ops.graph import edge_conv_features
+
+        self.saved = backbone.edge_conv_direct
+
+        def call(x, idx, weight, scale, bias, *, groups, negative_slope=0.2,
+                 dtype=torch.float32):
+            f = edge_conv_features(x.to(dtype), idx, weight.to(dtype))
+            y = backbone.leaky_relu(backbone.group_norm(f, groups, scale,
+                                                        bias), negative_slope)
+            yd = y.detach()
+            if self.replay is None:
+                mx = y.amax(2)
+                self.masks.append((yd == mx.detach()[:, :, None]).cpu())
+                self.tables.append(yd.float().cpu())
+                return mx
+            call_no = len(self.masks)
+            mask = self.replay["masks"][call_no].to(y.device)
+            self.masks.append(mask)
+            flip = ((yd == yd.amax(2, keepdim=True)) != mask).any(2)
+            self.flips.append(int(flip.sum()))
+            if self.flips[-1]:
+                b, n, c = flip.nonzero(as_tuple=True)
+                mine = yd[b, n, :, c].double()
+                theirs = self.replay["tables"][call_no].to(y.device)[
+                    b, n, :, c].double()
+                won = torch.where(mask[b, n, :, c], mine, -torch.inf)
+                gap = mine.amax(1) - won.amax(1)
+                bound = 2.0 * (mine - theirs).abs().amax(1)
+                self.flip_gaps.append({"gap": float(gap.max()),
+                                       "bound": float(bound.max())})
+                if bool((gap > bound).any()):
+                    raise AssertionError(
+                        f"direct edge conv: call {call_no}: "
+                        f"{int((gap > bound).sum())} of {self.flips[-1]} max "
+                        f"flips are no near-tie")
+            # the mean in float32 or wider: a bf16 sum of tied winners
+            # rounds, so that their mean would no longer be their value
+            acc = torch.promote_types(y.dtype, torch.float32)
+            cnt = mask.sum(2, dtype=acc)
+            return (torch.where(mask, y, 0.0).to(acc).sum(2) / cnt).to(
+                y.dtype)
+
+        backbone.edge_conv_direct = call
+        return self
+
+    def __exit__(self, *exc):
+        from sednet_tpu_torch.models import backbone
+
+        backbone.edge_conv_direct = self.saved
+
+
+def _computes_in(m, dtype):
+    """m with every layer computing in dtype (the attribute `dtype` of the
+    model, its encoder and edge convolutions)."""
+    for mod in m.modules():
+        if hasattr(mod, "factored_gn") or hasattr(mod, "sort_points") \
+                or hasattr(mod, "w_pos_enc"):
+            mod.dtype = dtype
+    return m
+
+
 def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
     """One step's loss and gradients for the first cloud of `batch` on the
     card (K1, K6, K6b) and on the CPU in float32 and in float64, from the
@@ -3182,7 +3310,14 @@ def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
     (`scripts/probe_train_check.py`), printed beside it: the CPU step on
     its own graphs and maxima (the plain top-k), where K1's TF32 split
     swaps near-tie neighbours in a few rows; and the rows of each graph
-    whose neighbour set differs between the two."""
+    whose neighbour set differs between the two.
+
+    A model with the direct edge convolution (`factored_gn` off, or bf16
+    compute) replays its maxima through `_DirectMaxima`, and its float64
+    step computes every layer in float64. A bf16 model's CPU step runs in
+    bf16 as the card's does, and its loss is held like its gradients:
+    within TRAIN_LOSS_RTOL of float64's, or twice the CPU bf16 step's own
+    distance where that is larger."""
     import copy
 
     import torch
@@ -3195,8 +3330,14 @@ def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
         margin=cfg.triplet_margin, max_segments=cfg.ms_max_clusters),
         torch.Generator().manual_seed(TRAIN_SEED))
 
+    direct = model.dtype != torch.float32 or not all(
+        c.factored_gn for c in (model.encoder.conv1, model.encoder.conv2,
+                                model.encoder.conv3))
+
     def run(dev, replay=None, dtype=torch.float32):
         m = copy.deepcopy(model).to(dev).to(dtype)
+        if direct and dtype == torch.float64:
+            _computes_in(m, dtype)
         m.zero_grad(set_to_none=True)
         seen = {}   # the encoder's features and its global max's argmax
         hooks = [m.encoder.register_forward_hook(
@@ -3206,8 +3347,9 @@ def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
                          argmax=o.detach().relu().argmax(1).cpu()))]
         b = {k: v.to(dev, dtype if v.is_floating_point() else v.dtype)
              for k, v in one.items()}
+        maxima_of = _DirectMaxima if direct else _Maxima
         with _Graphs(replay and replay["graphs"]) as graphs, \
-                _Maxima(replay and replay["maxima"]) as maxima:
+                maxima_of(replay and replay["maxima"]) as maxima:
             total, _ = T.make_loss_fn(m, cfg)(b, draws)
             total.backward()
         for h in hooks:
@@ -3247,9 +3389,11 @@ def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
     worst = sorted(card_f64, key=lambda k: card_f64[k] / allowed[k])[-3:]
     loss_f64 = {name: abs(side["loss"] - exact["loss"]) / abs(exact["loss"])
                 for name, side in (("card", card), ("cpu_f32", cpu))}
+    loss_allowed = (TRAIN_LOSS_RTOL if model.dtype == torch.float32
+                    else max(TRAIN_LOSS_RTOL, 2.0 * loss_f64["cpu_f32"]))
     rec = {"loss": card["loss"], "cpu_loss": cpu["loss"],
            "f64_loss": exact["loss"], "loss_vs_f64": loss_f64,
-           "loss_allowed": TRAIN_LOSS_RTOL, **versus(card, cpu),
+           "loss_allowed": loss_allowed, **versus(card, cpu),
            "max_flips": cpu["flips"], "max_flips_f64": exact["flips"],
            "flip_gaps": cpu["flip_gaps"], "flip_gaps_f64": exact["flip_gaps"],
            "card_vs_f64_max": max(card_f64.values()),
@@ -3264,7 +3408,7 @@ def card_vs_cpu_step(model, cfg, batch, own_graphs=False):
             "graph_rows_differing": [
                 int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
                 for a, b in zip(card["graphs"], own["graphs"])]}
-    if loss_f64["card"] > TRAIN_LOSS_RTOL or over:
+    if loss_f64["card"] > loss_allowed or over:
         raise AssertionError(f"train: the card's step against the CPU's {rec}")
     return rec
 
@@ -3898,8 +4042,13 @@ def check_k2_bf16(case, x_e, bw, parent=None):
     x_e padded once to the kernel width and its columns cast to bf16 once,
     as the loops do, against the plain bf16 version at E by `f64_errors`'
     rule: against the same function in float64 on the bf16-rounded inputs,
-    at most twice the plain version's error; and the same bits on three
-    launches. Timed: the call, 20 calls' device time (`device_ms`, the
+    every element at most twice the plain version's largest error (these
+    fixed inputs need no weight held apart); then by the shared rule of
+    `ops.bf16_rule.check_bf16_step`, which holds apart the weights within
+    float32's error of a bf16 rounding midpoint, its counts under `rule`
+    (`held_apart`, and `held_flipped`, the ones a row needed rounded to
+    their other neighbour: 0 while the first rule passes); and the same
+    bits on three launches. Timed: the call, 20 calls' device time (`device_ms`, the
     query's cast included), the launch alone (`kernel_ms`) and, given
     `parent` (`parent_ms_bf16`), the parent tree's launch on the same bf16
     inputs at its own kernel width (`parent_kernel_ms`); the plain version, attention in bf16 (the
@@ -3909,6 +4058,7 @@ def check_k2_bf16(case, x_e, bw, parent=None):
     import torch.nn.functional as F
     from sednet_tpu_torch.ops import _build
     from sednet_tpu_torch.ops import cuda_kernels as ck
+    from sednet_tpu_torch.ops.bf16_rule import check_bf16_step
 
     b, n, e = x_e.shape
     xp = ck.kernel_width(x_e, bf16=True)
@@ -3956,6 +4106,10 @@ def check_k2_bf16(case, x_e, bw, parent=None):
            "max_abs_err": float((got - plain).abs().max()),
            "vs": "the plain bf16 version (held by the float64 rule)",
            **f64_errors(case, got, plain, exact),
+           "rule": {k: v for k, v in check_bf16_step(
+               case, got, plain, x_e, inv_b2).items() if k in (
+               "bound", "held_apart", "held_flipped", "held_named",
+               "rows_fitted", "rows_failed")},
            "same_bits_3_launches": True,
            "ms": time_ms(fn), "device_ms": burst_ms(fn),
            "kernel_ms": burst_ms(kernel),
@@ -4540,6 +4694,452 @@ def phase_tools():
         raise AssertionError(f"tools: {files} files, differ {differ}")
 
 
+# --- slice 16: the direct edge convolution and bf16 compute, K1's row
+# order, multi-device --------------------------------------------------------
+
+BF16_MODEL_STEP_REPS = 3
+
+
+def phase_bf16_model(models, shapes):
+    """`bf16_model`: the reference-default eval (bench.py's config 2, 8 x
+    10000, both models of bench_10k.npz) with the direct edge convolution
+    (`factored_gn` off) in float32 and with bf16 compute (`model_bf16`),
+    each held to the predict phase's JAX bars (the float32 eval's spread
+    across keys: the JAX package has no bf16 reference); then one train
+    step of each at 4 x 10000 under the production config, timed, and held
+    for its first cloud to the CPU's float64 step on the card's graphs and
+    the card's maxima of the direct branch (`card_vs_cpu_step`). Returns
+    K1's launches of the evals."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sednet_tpu_torch import train as T
+    from sednet_tpu_torch.data import BatchLoader
+    from sednet_tpu_torch.predict import load_models
+    from sednet_tpu_torch.weights import save_params_npz
+
+    batch = {k: np.stack([s[k] for s in shapes])
+             for k in ("points", "normals", "labels", "prim")}
+    gen = torch.Generator().manual_seed(3)
+    x0s = [torch.randn((N_POINTS, 12), generator=gen) for _ in range(BATCH)]
+    sels = [torch.randperm(N_POINTS, generator=gen)[:5000]
+            for _ in range(BATCH)]
+    root = os.path.join(ROOT, "build", "bf16_model")
+    os.makedirs(root, exist_ok=True)
+    preload = os.path.join(root, "preload_inst.npz")
+    save_params_npz(preload, models["inst"])
+    mixed, _ = train_sets()
+    k1 = 0
+    for tag, flags in (("direct_f32", dict(factored_gn=False)),
+                       ("bf16", dict(model_bf16=True))):
+        cfg = predict_cfg(**flags)
+        pair = load_models(os.path.join(ROOT, "checkpoints",
+                                        "bench_10k.npz"), cfg, device=DEVICE)
+        rec, _, _ = phase_predict(f"bf16_model {tag}", pair, batch,
+                                  (x0s, sels), cfg=cfg, reps=1,
+                                  profiled=False)
+        k1 += rec["launches"]["K1"]
+        del pair
+        tcfg = dataclasses.replace(train_cfg(preload), **flags)
+        model, optimizer, tgen = T.init_training(tcfg, DEVICE)
+        tb = T.to_device(next(iter(BatchLoader(mixed, tcfg.batch_size,
+                                               shuffle=False))), DEVICE)
+        versus = card_vs_cpu_step(model, tcfg, tb)
+        step = T.make_train_step(model, optimizer, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        metrics = step(tb, generator=tgen)
+        torch.cuda.synchronize()
+        step_counts = read_counts()
+        losses = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(list(losses.values()))):
+            raise AssertionError(f"bf16_model {tag}: step not finite {losses}")
+        if step_counts["K1"] <= 0:
+            raise AssertionError(f"bf16_model {tag}: the step launched K1 "
+                                 "no time")
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError(f"bf16_model {tag}: parameters left float32")
+        rec.update({"train_step": {
+            "batch": [tcfg.batch_size, tcfg.num_points], "metrics": losses,
+            "launches": step_counts,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "step_ms": time_ms(lambda: step(tb, generator=tgen),
+                               reps=BF16_MODEL_STEP_REPS, warmup=1),
+            "card_vs_cpu": versus}})
+        rec["train_step"]["shapes_per_s"] = (
+            tcfg.batch_size * 1e3 / rec["train_step"]["step_ms"])
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"bf16_model {tag}: metrics out of "
+                                 f"tolerance {rec}")
+        del model, optimizer, step, tb
+        torch.cuda.empty_cache()
+    return {"K1": k1}
+
+
+def row_order_cases(model, models, x, emb):
+    """The four cases of K1's row order: the eval's bandwidth kNN (one
+    shape's 5000-row subsample of the enriched 140-d embedding, at 160),
+    the headline's (5000, 128), the spectral farthest-50 on one cloud's
+    xyz and the encoder's layer-2 graph (8, 10000, 64), as (name, q, k,
+    largest, the points' xyz where the encoder's own xyz order applies)."""
+    head = {c[0]: c for c in k1_headline_cases(model, x, emb)}
+    emb_e, sels = eval_subsamples(models, x)
+    ev = k1_eval_cases(x, emb_e, sels)
+    one_bw = [c for c in ev if c[0].startswith("bandwidth")
+              and c[0].endswith("one shape")][0]
+    one_far = [c for c in ev if c[0].startswith("spectral")
+               and c[0].endswith("one shape")][0]
+    return [(one_bw[0], one_bw[1], one_bw[3], False, None),
+            ("bandwidth (5000,128)", head["bandwidth"][1], 128, False, None),
+            (one_far[0], one_far[1], one_far[3], True, None),
+            ("knn layer 2", head["knn layer 2"][1], K, False,
+             x[..., :3].contiguous())]
+
+
+def check_row_order(name, q, k, largest, xyz, parent=None):
+    """K1 on q against itself unsorted and with `spatial_sort` (the order
+    of its rows, K1 keyed by their original indices, the rows put back):
+    both held to the plain version (`compare_with_plain`, bad_rows 0), the
+    sorted one's indices to the unsorted one's (ties to the lower original
+    index on both). Timed: the whole sorted call, the unsorted call, the
+    order alone (`locality_order` on the rows and the gather into sorted
+    order) and K1 alone on the sorted rows; with xyz, K1 on the rows in
+    the points' Morton order (the encoder's `sort_points`); with `parent`,
+    the parent tree's K1 on the unsorted rows."""
+    import torch
+    from sednet_tpu_torch.ops.flash_topk import (compare_with_plain,
+                                                 flash_topk, sort_keys)
+    from sednet_tpu_torch.ops.graph import locality_order
+
+    def unsorted():
+        return flash_topk(q, q, k, largest=largest, spatial_sort=False,
+                          return_distances=True)
+
+    def whole():
+        return flash_topk(q, q, k, largest=largest, spatial_sort=True,
+                          return_distances=True)
+
+    q3 = q[None] if q.dim() == 2 else q
+
+    def order(keys=None):
+        perm = locality_order(sort_keys(q3, "sqdist") if keys is None
+                              else keys).long()
+        return perm, torch.gather(q3, 1, perm[..., None].expand(
+            -1, -1, q3.shape[-1])).contiguous()
+
+    def k1_on(perm, qs):
+        ids = perm.to(torch.int32).contiguous()
+        return lambda: torch.ops.sednet.topk(qs, qs, k, "sqdist", 1.0,
+                                             bool(largest), ids)
+
+    (i0, d0), (i1, d1) = unsorted(), whole()
+    torch.cuda.synchronize()
+    reps = [compare_with_plain(q, q, k, i, d, largest=largest)
+            for i, d in ((i0, d0), (i1, d1))]
+    perm, qs = order()
+    rec = {"case": name, "shape": list(q.shape), "k": k, "largest": largest,
+           "bad_rows": reps[1]["bad_rows"],
+           "bad_rows_unsorted": reps[0]["bad_rows"],
+           "tie_rows": reps[1]["tie_rows"],
+           "max_abs_err": reps[1]["max_abs_err"],
+           "same_indices_as_unsorted": bool(torch.equal(i0, i1)),
+           "unsorted_ms": time_ms(unsorted), "sorted_ms": time_ms(whole),
+           "order_ms": time_ms(order), "k1_on_sorted_ms": time_ms(
+               k1_on(perm, qs)),
+           "unsorted_device_ms": burst_ms(unsorted),
+           "k1_on_sorted_device_ms": burst_ms(k1_on(perm, qs))}
+    if xyz is not None:
+        pxyz, qx = order(xyz)
+        run = k1_on(pxyz, qx)
+        rec["xyz_order_ms"] = time_ms(lambda: order(xyz))
+        rec["k1_on_xyz_sorted_ms"] = time_ms(run)
+        rec["k1_on_xyz_sorted_device_ms"] = burst_ms(run)
+        rec["xyz_sorted_same_indices"] = bool(torch.equal(
+            _unsort_ids(run()[1], pxyz), i0))
+    # K1's launch alone through ctypes, no column ids, as the parent's is
+    # called: the device time of 20 launches each
+    raw = _k1_raw()
+    rec["k1_launch_device_ms"] = burst_ms(lambda: raw(q, q, k, largest))
+    if parent is not None:
+        rec["parent_ms"] = time_ms(lambda: parent(q, q, k, largest))
+        rec["parent_launch_device_ms"] = burst_ms(
+            lambda: parent(q, q, k, largest))
+        rec["parent_same_indices"] = bool(torch.equal(
+            parent(q, q, k, largest).long().reshape(i0.shape), i0))
+    rec["sorting_pays"] = rec["sorted_ms"] < rec["unsorted_ms"]
+    if rec["bad_rows"] or rec["bad_rows_unsorted"] \
+            or not rec["same_indices_as_unsorted"]:
+        raise AssertionError(f"row_order {name}: {rec}")
+    return rec
+
+
+def _k1_raw():
+    """This tree's K1 launched through its C interface with no column-id
+    table, as `parent_topk` calls the parent's: call(q, p, k, largest) ->
+    int32 indices."""
+    import torch
+    from sednet_tpu_torch.ops import _build
+
+    lib = _build.lib()
+
+    def call(q, p, k, largest=False):
+        q3 = q[None] if q.dim() == 2 else q
+        b, m, d = q3.shape
+        n = p.shape[-2]
+        dist = torch.empty((b, m, k), device=q.device)
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=q.device)
+        _build.check(lib.sednet_topk(
+            q3.data_ptr(), p.data_ptr(), m * d, 0 if p.dim() == 2 else n * d,
+            b, m, n, d, k, 0, 1.0, int(largest), 0, 0, dist.data_ptr(),
+            idx.data_ptr(), _build.stream_of(q)), "K1")
+        return idx
+
+    return call
+
+
+def _unsort_ids(idx_sorted, perm):
+    """K1's ids (original indices) listed for rows in the order perm, put
+    back in the rows' original order."""
+    import torch
+
+    inv = torch.argsort(perm, dim=1)
+    return torch.gather(idx_sorted, 1, inv[..., None].expand(
+        -1, -1, idx_sorted.shape[-1]))
+
+
+def phase_row_order(model, models, x, emb):
+    """`row_order`: K1 sorted and unsorted at the four cases of
+    `row_order_cases`, each by `check_row_order` (bad_rows 0 both ways,
+    the same indices), the order's own ms beside K1's, the parent tree's
+    K1 in the same call under --parent. K1's launches of one sorted call a
+    case counted. Returns them."""
+    import torch
+
+    parent = (parent_topk(PARENT_TREE)
+              if PARENT_TREE and parent_parts(PARENT_TREE)["topk"] else None)
+    from sednet_tpu_torch.ops.flash_topk import flash_topk
+
+    cases = row_order_cases(model, models, x, emb)
+    # the path: each case's sorted call once (the checks' timed calls after
+    # it count nothing)
+    torch.cuda.synchronize()
+    reset_counts()
+    for _, q, k, largest, _ in cases:
+        flash_topk(q, q, k, largest=largest, spatial_sort=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["K1"] <= 0:
+        raise AssertionError("row_order launched K1 no time")
+    recs = [check_row_order(name, q, k, largest, xyz, parent)
+            for name, q, k, largest, xyz in cases]
+    emit({"phase": "row_order", "card": nvidia_smi(), "cases": recs,
+          "launches": counts})
+    return counts
+
+
+def _deterministic():
+    """Inside `with`, torch's deterministic algorithms (warnings only where
+    an op has none): the triplet loss's repeated-index `index_put_` adds in
+    a fixed order, so that two equal train steps give the same bits."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def scope():
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(before)
+
+    return scope()
+
+
+def phase_multi_device(models, shapes, x, emb, big_shapes, big_inputs,
+                       big_labels):
+    """`multi_device`: the port's multi-device paths on a one-rank NCCL
+    group on the card (`parallel.init_mesh`, a FileStore under build/),
+    whose collectives run on the one rank too (counted a path,
+    `parallel.mesh.COLLECTIVES`; the ring of one rank exchanges nothing):
+    data-parallel `predict_shapes_mesh` against the in-process
+    `predict_shapes` on the 8 x 10000 eval with the same generator (every
+    result equal); a data-parallel train step (4 x 10000, the production
+    config) against the one-process step, bit for bit (both under torch's
+    deterministic algorithms, `_deterministic`); `ring_knn` against K1 on
+    one cloud's first graph and its layer-2 features (the same indices);
+    `mean_shift_iterate_sharded` against `mean_shift_iterate` on one
+    shape's embedding (the same bits); `big_cloud_segment(hpnet=True)` on
+    one 32768-point cloud with predict_bigcloud's start block and
+    subsample (`big_inputs`), its metrics held to that phase's JAX bars and
+    its labels to that phase's by ARI within the same spread. Each path's
+    launches counted and held."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from sednet_tpu_torch import train as T
+    from sednet_tpu_torch.cluster.mean_shift import (compute_bandwidth,
+                                                     mean_shift_iterate)
+    from sednet_tpu_torch.data import BatchLoader
+    from sednet_tpu_torch.ops.flash_topk import flash_topk
+    from sednet_tpu_torch.parallel import (big_cloud_segment, init_mesh,
+                                           mean_shift_iterate_sharded,
+                                           ring_knn)
+    from sednet_tpu_torch.parallel.mesh import COLLECTIVES
+    from sednet_tpu_torch.predict import predict_shapes, predict_shapes_mesh
+    from sednet_tpu_torch.weights import save_params_npz
+
+    root = os.path.join(ROOT, "build", "multi_device")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store = tempfile.mkdtemp(dir=root)
+    mesh = init_mesh(0, 1, store, device=torch.device(DEVICE, 0))
+    rec = {"phase": "multi_device", "card": nvidia_smi(),
+           "backend": dist.get_backend(), "world_size": mesh.size}
+    launches, collectives = {}, {}
+
+    def counted(name, fn, need):
+        torch.cuda.synchronize()
+        reset_counts()
+        before = dict(COLLECTIVES)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        collectives[name] = {k: v - before[k] for k, v in COLLECTIVES.items()
+                             if v > before[k]}
+        for key in need:
+            if launches[name][key] <= 0:
+                raise AssertionError(f"multi_device {name} launched {key} "
+                                     "no time")
+        # a sharded path issues its collectives on one rank too (a copy),
+        # and the one-process step and the ring of one rank none
+        if bool(collectives[name]) != (name not in ("train_step_one",)
+                                       and not name.startswith("ring_knn")):
+            raise AssertionError(f"multi_device {name}: collectives "
+                                 f"{collectives[name]}")
+        return out
+
+    try:
+        # data-parallel predict against the in-process eval
+        batch = {k: np.stack([s_[k] for s_ in shapes])
+                 for k in ("points", "normals", "labels", "prim")}
+        cfg = predict_cfg()
+        t0 = time.time()
+        dp = counted("predict", lambda: predict_shapes_mesh(
+            models["type"], models["inst"], batch, cfg, mesh,
+            generator=torch.Generator().manual_seed(6)),
+            ("K1", "K2b", "K3", "K6"))
+        dp_s = time.time() - t0
+        one = predict_shapes(models["type"], models["inst"], batch, cfg,
+                             generator=torch.Generator().manual_seed(6))
+        rec["predict"] = {"shapes": len(dp), "batch_s": dp_s,
+                          "fields_differing": _same_results(dp, one),
+                          "inst_iou": float(np.mean([r["inst_iou"]
+                                                     for r in dp]))}
+
+        # a data-parallel train step against the one-process step
+        preload = os.path.join(root, "preload_inst.npz")
+        save_params_npz(preload, models["inst"])
+        tcfg = dataclasses.replace(train_cfg(preload), mesh_shape=1)
+        mixed, _ = train_sets()
+        tb = T.to_device(next(iter(BatchLoader(mixed, tcfg.batch_size,
+                                               shuffle=False))), DEVICE)
+        steps = []
+        for m in (mesh, None):
+            model, opt, _ = T.init_training(tcfg, DEVICE)
+            step = T.make_train_step(model, opt, tcfg, m)
+            with _deterministic():
+                metrics = counted(f"train_step_{'dp' if m else 'one'}",
+                                  lambda: step(tb, generator=torch.Generator(
+                                      ).manual_seed(TRAIN_SEED)),
+                                  ("K1", "K6", "K6b"))
+            steps.append(({k: float(v) for k, v in metrics.items()},
+                          {k: p.detach().clone()
+                           for k, p in model.named_parameters()},
+                          {k: p.grad.detach().clone()
+                           for k, p in model.named_parameters()}))
+            del model, opt, step
+        differ = [k for k in steps[0][2]
+                  if not torch.equal(steps[0][2][k], steps[1][2][k])
+                  or not torch.equal(steps[0][1][k], steps[1][1][k])]
+        rec["train_step"] = {"batch": [tcfg.batch_size, tcfg.num_points],
+                             "metrics": steps[0][0],
+                             "metrics_equal": steps[0][0] == steps[1][0],
+                             "leaves_differing": differ}
+        del steps, tb
+
+        # ring kNN against K1 on one cloud
+        x1 = _knn_inputs(models["inst"], x)[0]
+        ring = {}
+        for name, rows, metric in (("layer 1 (points_normals)", x[0],
+                                    "points_normals"),
+                                   ("layer 2", x1[0], "sqdist")):
+            got = counted(f"ring_knn {name}", lambda: ring_knn(
+                rows.contiguous(), K, mesh, metric=metric), ("K1",))
+            want = flash_topk(rows.contiguous(), rows.contiguous(), K,
+                              metric=metric, return_distances=True)
+            ring[name] = {"same_indices": bool(torch.equal(got[0], want[0])),
+                          "same_distances": bool(torch.equal(got[1],
+                                                             want[1]))}
+        rec["ring_knn"] = ring
+
+        # the sharded shift against the one-process loop
+        e0 = torch.nn.functional.normalize(emb[0], dim=-1).contiguous()
+        bw = float(compute_bandwidth(e0, 5000, np.float32(0.015),
+                                     generator=torch.Generator().manual_seed(
+                                         0)))
+        shifted = counted("mean_shift_sharded", lambda: (
+            mean_shift_iterate_sharded(e0, bw, mesh, iterations=50)), ("K2",))
+        rec["mean_shift_sharded"] = {"bandwidth": bw, "same_bits": bool(
+            torch.equal(shifted, mean_shift_iterate(e0, bw, 50)))}
+
+        # big_cloud_segment with the hpnet enrichment on one large cloud
+        big = torch.from_numpy(np.concatenate(
+            [big_shapes[0]["points"], big_shapes[0]["normals"]], -1)).to(
+            DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        labels, num, types, _ = counted("big_cloud_segment", lambda: (
+            big_cloud_segment(models["inst"], big, mesh, hpnet=True,
+                              x0=big_inputs[0][0], sel=big_inputs[1][0])),
+            ("K1", "K2", "K3", "K5"))
+        seg_s = time.time() - t0
+        got = _metrics(big_shapes[:1], [labels.cpu().numpy()],
+                       [types.cpu().numpy()])
+        rec["big_cloud_segment"] = {
+            "points": int(big.shape[0]), "s": seg_s, "num_clusters": num,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **got, "ref": REF_BIG_MEAN, "tol": BIG_TOL,
+            "ari_vs_predict_bigcloud": _ari(labels.cpu().numpy(),
+                                            big_labels[0]),
+            "note": "type_iou from the inst model's type head"}
+    finally:
+        dist.destroy_process_group()
+    rec["launches"] = launches
+    rec["collectives"] = collectives
+    inst_ok = abs(got["inst_iou"] - REF_BIG_MEAN["inst_iou"]) \
+        <= BIG_TOL["inst_iou"]
+    rec["ok"] = (not rec["predict"]["fields_differing"]
+                 and rec["train_step"]["metrics_equal"]
+                 and not rec["train_step"]["leaves_differing"]
+                 and all(v["same_indices"] for v in ring.values())
+                 and rec["mean_shift_sharded"]["same_bits"] and inst_ok
+                 and rec["big_cloud_segment"]["ari_vs_predict_bigcloud"]
+                 >= 1.0 - BIG_TOL["inst_iou"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"multi_device: {rec}")
+    return launches
+
+
 KERNELS = {
     "K1": ("flash_topk", "sednet_tpu_torch/csrc/flash_topk.cu",
            "sednet_tpu/ops/flash_topk.py:259"),
@@ -4632,7 +5232,7 @@ def main():
     matfree_counts, k2b_big = phase_spectral_matfree(models, big_shapes,
                                                      big_x, big_inputs)
     timings["K2b"].append(k2b_big)
-    phase_predict_bigcloud(models, big_shapes, big_inputs)
+    _, big_labels = phase_predict_bigcloud(models, big_shapes, big_inputs)
     train_counts, k6b = phase_train(models, card)
     timings["K6b"] = k6b
     serve_counts = phase_serve(models, x_np)
@@ -4645,6 +5245,10 @@ def main():
     _, k2_resplit = phase_resplit(model, x)
     timings["K2"].append(k2_resplit)
     phase_tools()
+    bf16_model_counts = phase_bf16_model(models, shapes)
+    row_order_counts = phase_row_order(model, models, x, emb)
+    md_counts = phase_multi_device(models, shapes, x, emb, big_shapes,
+                                   big_inputs, big_labels)
     # each kernel's launches from the path of this smoke that runs it: K1,
     # K2b, K3 and K6 from the predict CLI's loop over the 8 clouds (K1 also
     # from the fit pipeline, the spline fits and the SplineNet trainer's
@@ -4658,7 +5262,10 @@ def main():
                   "splinenet_train": spline_train_k1,
                   "serve": serve_counts["K1"],
                   "parsenet_e2e": e2e_counts["K1"],
-                  "pointnet2_iou": p2_counts["K1"]}
+                  "pointnet2_iou": p2_counts["K1"],
+                  "bf16_model": bf16_model_counts["K1"],
+                  "row_order": row_order_counts["K1"],
+                  "multi_device": sum(c["K1"] for c in md_counts.values())}
     counts["K1"] = sum(k1_by_path.values())
     counts["K4"] = pred["predict_fused"]["launches"]["K4"]
     counts["K5"] = matfree_counts["K5"]

@@ -18,9 +18,11 @@ element's s and weight (`-DSEDNET_DBG`); only the widths 128 and 144.
 On the inputs of the smoke's `ms_bf16` phase (the headline embeddings at
 E = 128, one shape and the batch, and the eval's enriched embeddings, 140
 run at 144, with their bandwidths, `chip_smoke.ms_bf16_inputs`), for each
-form: the largest and mean float64 error (`chip_smoke.f64_errors`' rule:
-against the function in float64 on the bf16-rounded inputs, which rounds
-the weights to bf16 too), the plain bf16 version's, their ratio, the
+form: the largest and mean float64 error (against the function in float64
+on the bf16-rounded inputs, which rounds the weights to bf16 too), the
+smoke's rule on it (`ops.bf16_rule.check_bf16_step`: passed, the weights
+held apart, and for a failure whether its decisive weight was one of
+them), the plain bf16 version's error, their ratio, the
 device ms of a launch (20 between CUDA events), and the element that
 decides the largest error: its row, and the one weight whose bf16 rounding
 to the other neighbour explains most of that row's error vector (the
@@ -32,6 +34,13 @@ move of s that reaches it. Then the same rule on the same embeddings
 with every bandwidth scaled (`SCALES`), a fresh draw of the weights near
 a midpoint: each form's ratio a draw. Prints one JSON line a record, the
 card's name and power limit first (about 2 min with the builds).
+
+    python3 scripts/probe_ms_bf16_accum.py --floors 0:1,0:0,0.2:0.2 [--out F]
+
+evaluates the rule at each pair of its typical-error floors instead
+(`floor_sweep`; TYPICAL:SELF_TYPICAL, every weight's and a self-weight's):
+the card tests' bf16 cases, and the kernel's and the chained form's 19
+cases (about 3 min).
 """
 from __future__ import annotations
 
@@ -324,9 +333,116 @@ def weight_record(xe, inv_b2, bi, i, c, dbgs, launch_dbg, row_block=2048):
     return rec
 
 
+def rule_record(out, plain, xe, inv_b2, exact):
+    """The shared float64 rule (`ops.bf16_rule.check_bf16_step`) on one
+    form's output: passed or not, the weights it held apart, the rows it
+    passed only by rounding one of them the other way, and for a failure
+    the weight that best explains the worst row (`decisive`) and whether
+    the rule held that weight apart, and whether the weight that best
+    explains what a failed row keeps after the rule's choice
+    (`failed_named`) is one the rule does not hold apart."""
+    from sednet_tpu_torch.ops.bf16_rule import (check_bf16_step,
+                                                weight_held_apart)
+
+    r = check_bf16_step("probe", out, plain, xe, inv_b2,
+                        raise_on_fail=False)
+    rec = {"passed": r["rows_failed"] == 0,
+           **{k: r[k] for k in ("held_apart", "held_flipped", "rows_fitted",
+                                "rows_failed", "failed_named",
+                                "f64_err_outside", "bound")}}
+    if r["rows_failed"]:
+        dec = decisive(out, exact, xe, inv_b2)
+        bi, i = dec["at"][:2]
+        dec["held_apart"] = weight_held_apart(xe, inv_b2, bi, i,
+                                              dec["column"])
+        rec["decisive"] = dec
+        rec["not_held_apart"] = any(not f["held_apart"]
+                                    for f in r["failed_named"])
+    return rec
+
+
+def floor_sweep(floors, fns, emb, bw, emb_e, bw_e, emit):
+    """The rule under each pair of floors (`ops.bf16_rule.TYPICAL`,
+    `SELF_TYPICAL`), written "all:self": every bf16
+    parametrisation of the card test `_bf16_kernel_against_float64`
+    (failures listed), then the kernel's and the chained form's outputs on
+    the 19 cases (`rule_record`: passed, and for a failure whether the
+    weight that best explains it is one the rule does not hold apart)."""
+    import torch
+
+    from sednet_tpu_torch.ops import bf16_rule
+    from sednet_tpu_torch.ops import cuda_kernels as ck
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_port_cuda as tc
+
+    cuda = torch.device("cuda")
+    params = ([(n, e, b) for b in (1, 3)
+               for e in (12, 32, 40, 64, 112, 140, 200, 240, 256)
+               for n in (1, 63, 3001)] + [(10000, 128, 2)])
+    default = bf16_rule.TYPICAL, bf16_rule.SELF_TYPICAL
+
+    def use(c):
+        bf16_rule.TYPICAL, bf16_rule.SELF_TYPICAL = (
+            float(v) for v in c.split(":"))
+
+    try:
+        for c in floors:
+            use(c)
+            fails = []
+            for n, e, b in params:
+                try:
+                    tc._bf16_kernel_against_float64(cuda, n, e, b)
+                except AssertionError as exc:
+                    msg = str(exc)
+                    # the case, and the weights that best explain each
+                    # failed row (`failed_named`: column, held apart)
+                    fails.append([n, e, b, msg[:120],
+                                  msg[msg.find("'failed_named'"):][:900]])
+            emit({"floor": c, "card_cases": len(params),
+                  "card_cases_failed": fails})
+        for case, xe, bws in (("K2 bf16, one shape E=128", emb[:1], bw[:1]),
+                              ("K2b bf16 E=128", emb, bw),
+                              ("K2b bf16, enriched E=140", emb_e, bw_e)):
+            b, n, e = xe.shape
+            xk = ck.kernel_width(xe, bf16=True).to(torch.bfloat16)
+            out = torch.empty(xk.shape, device="cuda")
+            for scale in (1.0,) + (SCALES if b > 1 else ()):
+                inv_b2 = (1.0 / (bws * bws * scale * scale)).float(
+                ).contiguous()
+                plain = ck.mean_shift_step_plain(xe, xe, inv_b2, bf16=True)
+                exact = ck.mean_shift_step_plain(
+                    xe.double(), xe.double(), inv_b2.double(), bf16=True)
+                rec = {"case": case, "bandwidth_scale": scale}
+                for form in ("two_partials", "chained"):
+                    if fns[form](xk.data_ptr(), xk.data_ptr(),
+                                 inv_b2.data_ptr(), b, n, xk.shape[-1],
+                                 out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream):
+                        raise RuntimeError(f"{case}: {form} failed")
+                    rec[form] = {}
+                    for c in floors:
+                        use(c)
+                        r = rule_record(out, plain, xe, inv_b2, exact)
+                        rec[form][c] = {
+                            k: r.get(k) for k in ("passed", "held_apart",
+                                                  "rows_fitted",
+                                                  "rows_failed",
+                                                  "not_held_apart",
+                                                  "failed_named")}
+                emit(rec)
+    finally:
+        bf16_rule.TYPICAL, bf16_rule.SELF_TYPICAL = default
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--floors", default=None,
+                    help="comma-separated pairs TYPICAL:SELF_TYPICAL of the "
+                         "rule's floors (ops.bf16_rule): the card tests' bf16 "
+                         "cases and the kernel's and the chained form's 19 "
+                         "cases under each, instead of the forms' records")
     args = ap.parse_args()
 
     import torch
@@ -354,7 +470,11 @@ def main():
         emb = forward(models["inst"], x)[0].contiguous()
         bw, emb_e, bw_e = cs.ms_bf16_inputs(models, x, emb)
 
-    for case, xe, bws in (("K2 bf16, one shape E=128", emb[:1], bw[:1]),
+    if args.floors:
+        floor_sweep(args.floors.split(","), fns, emb,
+                    bw, emb_e, bw_e, emit)
+    for case, xe, bws in () if args.floors else (
+            ("K2 bf16, one shape E=128", emb[:1], bw[:1]),
                           ("K2b bf16 E=128", emb, bw),
                           ("K2b bf16, enriched E=140", emb_e, bw_e)):
         b, n, e = xe.shape
@@ -389,7 +509,9 @@ def main():
                 outs[form] = out.clone() if scale == 1.0 else None
                 rec[form] = {"f64_err": float(err.max()),
                              "ratio": float(err.max()) / plain_err,
-                             "mean_err": float(err.mean())}
+                             "mean_err": float(err.mean()),
+                             "rule": rule_record(out, plain, xe, inv_b2,
+                                                 exact)}
                 if scale == 1.0:
                     rec[form]["kernel_ms"] = cs.burst_ms(
                         lambda: launch(fn, inv_b2))

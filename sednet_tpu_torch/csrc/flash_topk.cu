@@ -36,11 +36,15 @@ using knn_walk::launch;
 
 // q: (B, M, D) with batch stride q_bstride elements; p: (B, N, D) with batch
 // stride p_bstride (0 shares one point set); metric 0 = sqdist,
-// 1 = points_normals (D >= 6). out_d: (B, M, k) float32, out_i: (B, M, k)
-// int32.
+// 1 = points_normals (D >= 6). col_ids: null, or (B, N) int32 with batch
+// stride col_bstride (0 shares one table): the id each column is listed
+// under and ordered by among equal values (a permutation of 0 .. N-1 for
+// the spatial sort: the original index of a sorted column). out_d:
+// (B, M, k) float32, out_i: (B, M, k) int32.
 extern "C" int sednet_topk(const void* q, const void* p, long long q_bstride,
                            long long p_bstride, int batch, int m, int n,
                            int d, int k, int metric, float w, int largest,
+                           const void* col_ids, long long col_bstride,
                            void* out_d, void* out_i, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool tensor = metric == 0 && d > SMALL_D;
@@ -57,6 +61,8 @@ extern "C" int sednet_topk(const void* q, const void* p, long long q_bstride,
   a.largest = largest;
   a.vec = (d & 3) == 0 && sim_tile::aligned16(q) && sim_tile::aligned16(p);
   a.w = w;
+  a.col_ids = (const int*)col_ids;
+  a.col_bstride = col_bstride;
   const SelectOut o = {(float*)out_d, (int*)out_i, nullptr, nullptr};
   if (k <= 32)
     return launch<TopkSelect, 1, true>(a, o, batch, tensor, MAX_SPLIT, false,

@@ -102,6 +102,11 @@ struct Args {
   int stages;           // p-tile stages of the tensor path
   int vec;              // 16-byte copies: D % 4 == 0 and q, p aligned
   float w;
+  // K1's column ids: the id a column is listed and ordered by, (B, N)
+  // int32 with batch stride col_bstride (0 shares one table); null lists
+  // the column's own index
+  const int* col_ids = nullptr;
+  long long col_bstride = 0;
 };
 
 __host__ __device__ constexpr int round16(int bytes) {
@@ -341,10 +346,12 @@ struct SelectOp {
   SelectOut out;
   int b, r0;
   Select s;
+  const int* ids;   // this shape's column ids, or null
   __device__ SelectOp(const SelectOut& out, int b, int r0, int)
       : out(out), b(b), r0(r0) {}
-  __device__ bool init(unsigned char* smem, const Args&) {
+  __device__ bool init(unsigned char* smem, const Args& a) {
     s = init_select<W, KPL, QPL, TIES>(smem);
+    ids = a.col_ids != nullptr ? a.col_ids + b * a.col_bstride : nullptr;
     return true;
   }
   __device__ __forceinline__ void columns(const Args& a, int part,
@@ -354,7 +361,10 @@ struct SelectOp {
   __device__ __forceinline__ void tile(const Args& a, int rb, int rows,
                                        const float (&v)[RW], int c,
                                        bool valid) {
-    select_tile<KPL, QPL, TIES>(s, rb, rows, v, c, valid, a.k);
+    // a column enters the lists under its id, so that ties go to the
+    // lower id whatever order the columns are walked in
+    const int id = (ids != nullptr && valid) ? __ldg(ids + c) : c;
+    select_tile<KPL, QPL, TIES>(s, rb, rows, v, id, valid, a.k);
   }
   __device__ __forceinline__ void end(const Args& a, int rb, int rows,
                                       int part) {

@@ -99,11 +99,12 @@ struct F32Tile {
 
 }  // namespace
 
-// q, x, out: (B, N, E) float32 contiguous, E a multiple of 32 up to 256;
-// inv_b2: (B,) float32.
+// q, out: (B, M, E), x: (B, N, E), float32 contiguous, E a multiple of 32
+// up to 256 (M = N for a whole shape's step, M < N for a row shard of the
+// sharded shift); inv_b2: (B,) float32.
 extern "C" int sednet_mean_shift_step(const void* q, const void* x,
-                                      const void* inv_b2, int batch, int n,
-                                      int e, void* out, void* stream) {
-  return mean_shift::launch_width<F32Tile>(q, x, inv_b2, batch, n, e, out,
+                                      const void* inv_b2, int batch, int m,
+                                      int n, int e, void* out, void* stream) {
+  return mean_shift::launch_width<F32Tile>(q, x, inv_b2, batch, m, n, e, out,
                                            stream);
 }

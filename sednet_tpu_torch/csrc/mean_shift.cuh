@@ -74,7 +74,7 @@ template <class Tile, int E>
 __global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(THREADS)
 step_kernel(const typename Tile::T* __restrict__ q,
             const typename Tile::T* __restrict__ x,
-            const float* __restrict__ inv_b2, int n,
+            const float* __restrict__ inv_b2, int m, int n,
             float* __restrict__ out) {
   using T = typename Tile::T;
   constexpr int P = Tile::template pitch<E>();
@@ -92,13 +92,13 @@ step_kernel(const typename Tile::T* __restrict__ q,
   const int r0 = (blockIdx.x / SPLIT) * RB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)b * n * E;
-  const T* xb = x + base;
+  const size_t qbase = (size_t)b * m * E;   // query and output rows
+  const T* xb = x + (size_t)b * n * E;
   const float ib2 = inv_b2[b];
   const int tiles = (n + CB - 1) / CB;
   const int mine = tiles > part ? (tiles - part + SPLIT - 1) / SPLIT : 0;
 
-  Tile::template load<E>(qs, q + base, r0, RB, n);
+  Tile::template load<E>(qs, q + qbase, r0, RB, m);
   cp_async_commit();
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < mine)
@@ -191,8 +191,8 @@ step_kernel(const typename Tile::T* __restrict__ q,
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
   const float nrm = sqrtf(fmaxf(ss, 1e-24f));
   const int gr = r0 + lr;
-  if (gr < n) {
-    float* o = out + base + (size_t)gr * E;
+  if (gr < m) {
+    float* o = out + qbase + (size_t)gr * E;
 #pragma unroll
     for (int i = 0; i < V4; ++i)
       *reinterpret_cast<float4*>(o + 4 * (j8 + 8 * i)) = make_float4(
@@ -203,37 +203,37 @@ step_kernel(const typename Tile::T* __restrict__ q,
 
 template <class Tile, int E>
 int launch(const void* q, const void* x, const float* inv_b2, int batch,
-           int n, float* out, cudaStream_t stream) {
+           int m, int n, float* out, cudaStream_t stream) {
   if (!aligned16(q) || !aligned16(x) || !aligned16(out))
     return (int)cudaErrorMisalignedAddress;
   cudaError_t err = cudaFuncSetAttribute(
       step_kernel<Tile, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes<Tile, E>());
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((n + RB - 1) / RB) * SPLIT, batch);
+  const dim3 grid(((m + RB - 1) / RB) * SPLIT, batch);
   step_kernel<Tile, E><<<grid, THREADS, smem_bytes<Tile, E>(), stream>>>(
-      (const typename Tile::T*)q, (const typename Tile::T*)x, inv_b2, n,
+      (const typename Tile::T*)q, (const typename Tile::T*)x, inv_b2, m, n,
       out);
   return (int)cudaGetLastError();
 }
 
-// q, x: (B, N, E) contiguous arrays of Tile::T, E a multiple of 32 up to
-// 256; inv_b2: (B,) float32; out: (B, N, E) float32 contiguous.
+// q: (B, M, E), x: (B, N, E) contiguous arrays of Tile::T, E a multiple of
+// 32 up to 256; inv_b2: (B,) float32; out: (B, M, E) float32 contiguous.
 template <class Tile>
 int launch_width(const void* q, const void* x, const void* inv_b2, int batch,
-                 int n, int e, void* out, void* stream) {
+                 int m, int n, int e, void* out, void* stream) {
   const float* bf = (const float*)inv_b2;
   float* of = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (e) {
-    case 32: return launch<Tile, 32>(q, x, bf, batch, n, of, st);
-    case 64: return launch<Tile, 64>(q, x, bf, batch, n, of, st);
-    case 96: return launch<Tile, 96>(q, x, bf, batch, n, of, st);
-    case 128: return launch<Tile, 128>(q, x, bf, batch, n, of, st);
-    case 160: return launch<Tile, 160>(q, x, bf, batch, n, of, st);
-    case 192: return launch<Tile, 192>(q, x, bf, batch, n, of, st);
-    case 224: return launch<Tile, 224>(q, x, bf, batch, n, of, st);
-    case 256: return launch<Tile, 256>(q, x, bf, batch, n, of, st);
+    case 32: return launch<Tile, 32>(q, x, bf, batch, m, n, of, st);
+    case 64: return launch<Tile, 64>(q, x, bf, batch, m, n, of, st);
+    case 96: return launch<Tile, 96>(q, x, bf, batch, m, n, of, st);
+    case 128: return launch<Tile, 128>(q, x, bf, batch, m, n, of, st);
+    case 160: return launch<Tile, 160>(q, x, bf, batch, m, n, of, st);
+    case 192: return launch<Tile, 192>(q, x, bf, batch, m, n, of, st);
+    case 224: return launch<Tile, 224>(q, x, bf, batch, m, n, of, st);
+    case 256: return launch<Tile, 256>(q, x, bf, batch, m, n, of, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sednet_topk": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P),
-    "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "sednet_topk": (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _L,
+                    _P, _P, _P),
+    "sednet_mean_shift_step": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "sednet_mean_shift_step_bf16": (_P, _P, _P, _I, _I, _I, _P, _P),
     "sednet_colmax": (_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
     "sednet_fused_edge_reductions": (_P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -44,7 +44,8 @@ def kernel_width(x, bf16: bool = False):
 
 def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048,
                           bf16: bool = False):
-    """Plain PyTorch version: new_x, x (B, N, E); inv_b2 (B,) = 1/b^2.
+    """Plain PyTorch version: new_x (B, M, E) rows against x (B, N, E)
+    (M = N for a whole shape's step); inv_b2 (B,) = 1/b^2.
 
         k = exp(max((new_x . x - 1) * inv_b2, -75))
         out = rownorm((k @ x) / max(k.1, 1e-30)),  norm eps 1e-24
@@ -58,7 +59,7 @@ def mean_shift_step_plain(new_x, x, inv_b2, row_block: int = 2048,
     if bf16:
         new_x, x = (t.to(torch.bfloat16).to(t.dtype) for t in (new_x, x))
     for b in range(x.shape[0]):
-        for r0 in range(0, x.shape[1], row_block):
+        for r0 in range(0, new_x.shape[1], row_block):
             s = new_x[b, r0:r0 + row_block] @ x[b].T
             k = torch.exp(torch.clamp_min((s - 1.0) * inv_b2[b], -75.0))
             den = k.sum(1, keepdim=True)
@@ -90,8 +91,11 @@ def _ms_launch(new_x, x, inv_b2, bf16):
                          "columns of `step_columns` on a CUDA device, got "
                          f"{x.dtype} on {x.device} "
                          f"(contiguous={x.is_contiguous()})")
-    if new_x.shape != x.shape or x.dim() != 3:
-        raise ValueError("mean_shift_step: new_x and x must both be (B, N, E)")
+    if (x.dim() != 3 or new_x.dim() != 3 or new_x.shape[0] != x.shape[0]
+            or new_x.shape[2] != x.shape[2]
+            or (bf16 and new_x.shape[1] != x.shape[1])):
+        raise ValueError("mean_shift_step: new_x (B, M, E) and x (B, N, E), "
+                         "M = N under bf16")
     e = x.shape[-1]
     q, xp = kernel_width(new_x, bf16), kernel_width(x, bf16)
     inv_b2 = inv_b2.to(device=x.device, dtype=torch.float32).reshape(-1)
@@ -104,11 +108,14 @@ def _ms_launch(new_x, x, inv_b2, bf16):
         # the query's cast of the Pallas wrapper (astype(bfloat16)), x's
         # made once a loop; the kernel reads bf16 tiles and writes float32
         q = q.to(torch.bfloat16)
-        launch = lib.sednet_mean_shift_step_bf16
+        err = lib.sednet_mean_shift_step_bf16(
+            q.data_ptr(), xp.data_ptr(), inv_b2.data_ptr(), x.shape[0],
+            x.shape[1], q.shape[-1], out.data_ptr(), _build.stream_of(x))
     else:
-        launch = lib.sednet_mean_shift_step
-    err = launch(q.data_ptr(), xp.data_ptr(), inv_b2.data_ptr(), x.shape[0],
-                 x.shape[1], q.shape[-1], out.data_ptr(), _build.stream_of(x))
+        err = lib.sednet_mean_shift_step(
+            q.data_ptr(), xp.data_ptr(), inv_b2.data_ptr(), x.shape[0],
+            new_x.shape[1], x.shape[1], q.shape[-1], out.data_ptr(),
+            _build.stream_of(x))
     _build.check(err, "mean_shift_step")
     return out if q.shape[-1] == e else out[..., :e].contiguous()
 
@@ -126,8 +133,9 @@ def _count(fn, bf16):
 
 
 def mean_shift_step(new_x, x, bandwidth, bf16: bool = False):
-    """One mean-shift update of one shape: new_x, x (N, E) unit rows,
-    bandwidth a scalar (K2, `mean_shift_step_pallas`). bf16=True runs both
+    """One mean-shift update of one shape: new_x (M, E) rows against x
+    (N, E) unit rows (M = N but for the sharded shift's row shards, float32
+    only), bandwidth a scalar (K2, `mean_shift_step_pallas`). bf16=True runs both
     tile products on bf16 inputs with float32 sums (`csrc/mean_shift_bf16.cu`,
     the Pallas kernel's `bf16=True`; counted in `launches_bf16`); on a
     CUDA device x is then the bf16 columns of `step_columns`, made once a

@@ -12,14 +12,24 @@ The kernel is the `torch.library` op `sednet::topk`, so that
 `torch.export` can trace through it: a CUDA tensor launches the kernel, a
 CPU tensor takes `topk_plain`, and the exported graph calls the op.
 
-The TPU wrapper's Morton `spatial_sort` is a speed device for that kernel's
-tile skip, not part of the result, and is not ported here.
+The op takes an optional int32 column-id table: the id each column of p is
+listed under and ordered by among equal distances. `flash_topk`'s
+`spatial_sort` (the TPU wrapper's, `topk_pallas`) sorts q's rows and p's
+columns along a Morton curve of their points (`ops.graph.locality_order`,
+the top-3 principal axes for wider rows) and hands K1 the sorted columns'
+original indices as that table: the kernel lists original indices, ties
+still go to the lower original index, and only the rows are mapped back.
+The order changes no index; it only changes how the kernel's column walk
+meets the candidates.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from sednet_tpu_torch.ops import _build
+from sednet_tpu_torch.ops.graph import locality_order
 
 K_MAX = 128   # candidate-list length of the kernel
 D_MAX = 256   # widest row the kernel stages in shared memory
@@ -42,18 +52,27 @@ def _dist_plain(q, p, metric: str, w: float):
 
 def topk_plain(q, p, k: int, *, metric: str = "sqdist",
                normal_metric_w: float = 1.0, largest: bool = False,
-               row_block: int = 1024):
+               row_block: int = 1024, col_ids=None):
     """Plain PyTorch version of the kernel: blocked matmul, then a stable
     sort so that equal distances keep the lower index first.
 
     q: (M, D) or (B, M, D); p: (N, D) or (B, N, D) (2-d p is shared by
-    every batch row). Returns (distances float32, indices int64), each
-    (..., M, k)."""
+    every batch row). col_ids: None, or the int (N,) or (B, N) table of
+    the ids the columns are listed under and ordered by among equal
+    distances (the kernel's key). Returns (distances float32, indices
+    int64), each (..., M, k)."""
     squeeze = q.dim() == 2
     qb = q[None] if squeeze else q
     dists, idxs = [], []
     for b in range(qb.shape[0]):
         pb = p if p.dim() == 2 else p[b]
+        ids = None
+        if col_ids is not None:
+            ids = (col_ids if col_ids.dim() == 1 else col_ids[b]).long()
+            # the columns in id order, so that the stable sort keys ties
+            # by id as the kernel does
+            by_id = torch.argsort(ids)
+            pb, ids = pb[by_id], ids[by_id]
         db, ib = [], []
         for r0 in range(0, qb.shape[1], row_block):
             d = _dist_plain(qb[b, r0:r0 + row_block], pb, metric,
@@ -63,7 +82,7 @@ def topk_plain(q, p, k: int, *, metric: str = "sqdist",
             vals, order = torch.sort(d, dim=1, stable=True)
             vals = vals[:, :k]
             db.append(-vals if largest else vals)
-            ib.append(order[:, :k])
+            ib.append(order[:, :k] if ids is None else ids[order[:, :k]])
         dists.append(torch.cat(db))
         idxs.append(torch.cat(ib))
     dist, idx = torch.stack(dists), torch.stack(idxs)
@@ -133,7 +152,7 @@ def compare_with_plain(q, p, k, idx, dist, *, metric: str = "sqdist",
             "tol": 1e-5 * scale}
 
 
-def _launch(q, p, k, metric, w, largest):
+def _launch(q, p, k, metric, w, largest, col_ids=None):
     _build.require_cuda_f32("flash_topk q", q)
     _build.require_cuda_f32("flash_topk p", p)
     if q.device != p.device:
@@ -151,11 +170,22 @@ def _launch(q, p, k, metric, w, largest):
         raise ValueError(f"flash_topk: k={k} outside [1, min({K_MAX}, {n})]")
     if d > D_MAX or (metric == "points_normals" and d < 6):
         raise ValueError(f"flash_topk: width {d} not supported for {metric}")
+    if col_ids is not None:
+        if (col_ids.dtype != torch.int32 or col_ids.device != q.device
+                or col_ids.shape[-1] != n or col_ids.dim() not in (1, 2)
+                or (col_ids.dim() == 2 and col_ids.shape[0] != batch)
+                or not col_ids.is_contiguous()):
+            raise ValueError(
+                f"flash_topk: col_ids must be a contiguous int32 (N,) or "
+                f"(B, N) = ({batch}, {n}) table on {q.device}, got "
+                f"{tuple(col_ids.shape)} {col_ids.dtype} on {col_ids.device}")
     dist = torch.empty((batch, m, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((batch, m, k), dtype=torch.int32, device=q.device)
     err = _build.lib().sednet_topk(
         q3.data_ptr(), p.data_ptr(), m * d, 0 if p.dim() == 2 else n * d,
         batch, m, n, d, k, METRICS.index(metric), float(w), int(largest),
+        0 if col_ids is None else col_ids.data_ptr(),
+        0 if col_ids is None or col_ids.dim() == 1 else n,
         dist.data_ptr(), idx.data_ptr(), _build.stream_of(q))
     _build.check(err, "flash_topk")
     flash_topk.launches += 1
@@ -167,39 +197,96 @@ def _launch(q, p, k, metric, w, largest):
 # K1 as the custom op `sednet::topk`: the dispatcher sends a CUDA tensor to
 # the kernel and a CPU tensor to `topk_plain`; any other device has no
 # implementation and raises. No autograd: the graphs it gives are indices.
+# col_ids defaults to None, so that callers and exported bundles from
+# before the table keep their calls.
 @torch.library.custom_op("sednet::topk", mutates_args=(), device_types="cpu")
 def _topk_op(q: torch.Tensor, p: torch.Tensor, k: int, metric: str,
-             normal_metric_w: float, largest: bool
+             normal_metric_w: float, largest: bool,
+             col_ids: Optional[torch.Tensor] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     return topk_plain(q, p, k, metric=metric,
-                      normal_metric_w=normal_metric_w, largest=largest)
+                      normal_metric_w=normal_metric_w, largest=largest,
+                      col_ids=col_ids)
 
 
 _topk_op.register_kernel("cuda")(_launch)
 
 
 @_topk_op.register_fake
-def _(q, p, k, metric, normal_metric_w, largest):
+def _(q, p, k, metric, normal_metric_w, largest, col_ids=None):
     shape = (*q.shape[:-1], k)
     return (q.new_empty(shape, dtype=torch.float32),
             q.new_empty(shape, dtype=torch.int64))
 
 
+def sort_keys(x, metric: str):
+    """The rows `spatial_sort` orders x by: xyz alone for points_normals
+    (`topk_pallas`'s key_dims), else every channel."""
+    return x[..., :3] if metric == "points_normals" else x
+
+
 def flash_topk(q, p, k: int, *, metric: str = "sqdist",
                normal_metric_w: float = 1.0, largest: bool = False,
-               return_distances: bool = False):
+               return_distances: bool = False,
+               spatial_sort: bool = False, col_ids=None):
     """Exact top-k rows of p for every row of q (see the module docstring),
     through the op `sednet::topk` (`torch.ops.sednet.topk`).
 
     Returns int64 indices (..., M, k), and with return_distances also the
     float32 distances in the same order. On CUDA, q and p must be
-    contiguous float32; k <= 128 and D <= 256."""
+    contiguous float32; k <= 128 and D <= 256.
+
+    spatial_sort: True sorts q's rows and p's columns by their
+    `locality_order` (p's by the same order when p is q), runs K1 with the
+    sorted columns' original indices as its column ids, and puts the rows
+    back; False (the default: on the H100 K1 runs slower on sorted rows at
+    every call class measured, PERF.md's K1 rows) takes the rows as they
+    are, as a caller that has ordered them (the encoder) wants. The result
+    is the same either way, ties included.
+    col_ids: the caller's own table (see `topk_plain`), int32 (N,) or
+    (B, N), composed with the sort's."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
-    # the op has no gradient: its inputs go in detached, on either device
-    dist, idx = torch.ops.sednet.topk(q.detach(), p.detach(), k, metric,
-                                      float(normal_metric_w), bool(largest))
+    same = p is q
+    q, p = q.detach(), p.detach()
+    if col_ids is not None:
+        col_ids = col_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    if spatial_sort:
+        dist, idx = _sorted_topk(q, p, k, metric, normal_metric_w, largest,
+                                 col_ids, same)
+    else:
+        # the op has no gradient: its inputs go in detached, on either device
+        dist, idx = torch.ops.sednet.topk(q, p, k, metric,
+                                          float(normal_metric_w),
+                                          bool(largest), col_ids)
     return (idx, dist) if return_distances else idx
+
+
+def _sorted_topk(q, p, k, metric, w, largest, col_ids, same):
+    """flash_topk's spatial_sort: (dist, idx) of q against p, both sorted
+    by their locality orders (one order where `same`: p is q), with K1
+    keyed by the original column ids."""
+    q3 = q[None] if q.dim() == 2 else q
+    p3 = p[None] if p.dim() == 2 else p
+    perm_q = locality_order(sort_keys(q3, metric)).long()
+    perm_p = perm_q if same else locality_order(sort_keys(p3,
+                                                          metric)).long()
+    qs = torch.gather(q3, 1, perm_q[..., None].expand(-1, -1, q3.shape[-1]))
+    ps = torch.gather(p3, 1, perm_p[..., None].expand(-1, -1, p3.shape[-1]))
+    ids = perm_p
+    if col_ids is not None:
+        table = col_ids[None] if col_ids.dim() == 1 else col_ids
+        ids = table.long().expand(perm_p.shape[0], -1).gather(1, perm_p)
+    if p.dim() == 2:
+        ps, ids = ps[0], ids[0]
+    dist_s, idx_s = torch.ops.sednet.topk(
+        qs if q.dim() == 3 else qs[0], ps, k, metric, float(w),
+        bool(largest), ids.to(torch.int32).contiguous())
+    if q.dim() == 2:
+        dist_s, idx_s = dist_s[None], idx_s[None]
+    pick = torch.argsort(perm_q, dim=1)[..., None].expand(-1, -1, k)
+    dist, idx = torch.gather(dist_s, 1, pick), torch.gather(idx_s, 1, pick)
+    return (dist[0], idx[0]) if q.dim() == 2 else (dist, idx)
 
 
 flash_topk.launches = 0

@@ -37,22 +37,29 @@ def _spread_bits(v):
     return (v | (v << 2)) & 0x09249249
 
 
-def locality_order(xyz):
-    """Per shape, the permutation that sorts the rows along a Morton curve
-    of their points: xyz (B, N, 3) float32 -> (B, N) int32 on xyz's device.
-    The port's copy of `sednet_tpu/ops/flash_topk.py:_locality_order` for
-    D <= 3: centre, quantise each axis to 10 bits between its min and max,
-    interleave the bits, stable argsort of the key.
+def locality_order(x, axes=None):
+    """Per shape, the permutation that sorts the rows along a Morton curve:
+    x (B, N, D) float32 -> (B, N) int32 on x's device. The port's copy of
+    `sednet_tpu/ops/flash_topk.py:_locality_order`: centre; for D > 3 take
+    the top-3 principal axes of the centred rows (the float32 covariance's
+    last three eigenvectors, `torch.linalg.eigh`) as the coordinates, for
+    D < 3 pad with zeros; quantise each axis to 10 bits between its min
+    and max, interleave the bits, stable argsort of the key.
 
-    Only xyz is taken: the encoder's three graphs (two in feature space)
-    share their neighbours along one Morton curve of the points as well as
-    along the features' own PCA curve, so the PCA branch of the JAX
-    function (D > 3) is not ported and wider rows raise."""
-    if xyz.dim() != 3 or not 1 <= xyz.shape[-1] <= 3:
-        raise ValueError(f"locality_order: xyz must be (B, N, D <= 3), got "
-                         f"{tuple(xyz.shape)}")
-    c = xyz - xyz.mean(dim=1, keepdim=True)
-    if c.shape[-1] < 3:
+    Eigenvector signs and near-equal eigenvalues may change the PCA order
+    from JAX's; no result of the kernels depends on the order. axes: the
+    (B, D, 3) principal axes to project on instead of eigh's (a caller
+    that fixes their signs)."""
+    if x.dim() != 3 or x.shape[-1] < 1:
+        raise ValueError(f"locality_order: x must be (B, N, D), got "
+                         f"{tuple(x.shape)}")
+    c = x - x.mean(dim=1, keepdim=True)
+    if c.shape[-1] > 3:
+        if axes is None:
+            cov = (c.transpose(1, 2) @ c).float()
+            axes = torch.linalg.eigh(cov).eigenvectors[..., -3:]  # ascending
+        c = c @ axes.to(c.dtype)
+    elif c.shape[-1] < 3:
         c = F.pad(c, (0, 3 - c.shape[-1]))
     lo, hi = torch.aminmax(c, dim=1, keepdim=True)
     qv = torch.clamp((c - lo) / torch.clamp_min(hi - lo, 1e-12) * 1023.0,
@@ -60,7 +67,7 @@ def locality_order(xyz):
     # x, y and z's spread bits shifted into place: the three fields share
     # no bit, so the sum is the 30-bit interleave. Computed in the call, not
     # cached, so that an export's fake tensors never enter a cache.
-    key = (_spread_bits(qv) << torch.arange(3, device=xyz.device)).sum(
+    key = (_spread_bits(qv) << torch.arange(3, device=x.device)).sum(
         -1, dtype=torch.int32)
     return torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
 
@@ -84,6 +91,26 @@ def gather_neighbors(x, idx):
     off = (torch.arange(b, device=x.device, dtype=idx.dtype) * n)[:, None, None]
     flat = x.reshape(b * n, c)[(idx + off).reshape(-1)]
     return flat.reshape(*idx.shape, c)
+
+
+def edge_features(x, idx):
+    """[x_j - x_i, x_i] edge features (`sednet_tpu/ops/graph.py:40-48`):
+    x (B, N, C), idx (B, N, K) -> (B, N, K, 2C)."""
+    nbr = gather_neighbors(x, idx)
+    ctr = x[:, :, None, :].expand_as(nbr)
+    return torch.cat([nbr - ctr, ctr], dim=-1)
+
+
+def edge_conv_features(x, idx, weight):
+    """conv([x_j - x_i, x_i]) with the bias-free 1x1 conv `weight` (C',
+    2C) factored through the gather, at JAX's rounding points
+    (`sednet_tpu/ops/graph.py:51-71`): a = conv([x, 0]) and
+    b = conv([-x, x]), each one product in x's dtype, then gather(a) + b.
+    x and weight share a dtype (bf16 under `model_bf16`).
+    Returns (B, N, K, C')."""
+    a = F.linear(torch.cat([x, torch.zeros_like(x)], dim=-1), weight)
+    b = F.linear(torch.cat([-x, x], dim=-1), weight)
+    return gather_neighbors(a, idx) + b[:, :, None, :]
 
 
 def gather_reduce_plain(a, idx):

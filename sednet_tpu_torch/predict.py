@@ -64,7 +64,7 @@ from sednet_tpu_torch.data import (EVAL_STREAM_SEED, BatchLoader, EdgeDataset,
                                    project_types_fitting)
 from sednet_tpu_torch.device import resolve_device
 from sednet_tpu_torch.metrics import siou_matched_segments_usecd_batch
-from sednet_tpu_torch.models.sednet import apply_fused
+from sednet_tpu_torch.models.sednet import SEDNet, apply_fused
 from sednet_tpu_torch.ops.knn import knn_indices, knn_indices_points_normals
 from sednet_tpu_torch.utils import visual_labels
 from sednet_tpu_torch.weights import load_checkpoint, load_npz
@@ -605,6 +605,101 @@ def predict_loader(loader, cfg: Config, model_type, model_inst, *,
         if dump_pool is not None:
             dump_pool.shutdown()
 
+    return _summary(all_metrics), all_metrics
+
+
+def batch_draws(batch: dict, cfg: Config, generator):
+    """The random inputs `predict_shapes` draws for a batch, drawn in its
+    order from `generator`: each shape's LOBPCG start block (under
+    hpnet_embed), then each shape's bandwidth subsample. Returns (x0s or
+    None, sels)."""
+    b, n = np.asarray(batch["points"]).shape[:2]
+    x0s = ([torch.randn((n, cfg.spectral_eigvecs), generator=generator)
+            for _ in range(b)] if cfg.hpnet_embed else None)
+    m = min(cluster_settings(cfg, cfg.num_points)["num_samples"], n)
+    return x0s, [torch.randperm(n, generator=generator)[:m]
+                 for _ in range(b)]
+
+
+def predict_shapes_mesh(model_type, model_inst, batch: dict, cfg: Config,
+                        mesh, *, generator=None, multi_vote: bool = False,
+                        fold5drop: bool = False, tta_fn=None,
+                        forward_fn=None):
+    """`predict_shapes` with the batch's shapes sharded over the ranks of
+    `mesh` (`sednet_tpu/predict.py`'s mesh branch; B divisible by the
+    mesh size): every rank draws the whole batch's random inputs from its
+    copy of `generator` (`batch_draws`, the draws of one `predict_shapes`
+    call on the whole batch), runs its B/M shapes on them, and the results
+    are gathered, in shape order, on every rank. So the results equal
+    those of `predict_shapes` on the whole batch with that generator; a
+    shape whose guarded clustering retries draws its retry from the
+    generator's state after the batch's draws, which one process reaches
+    only where no earlier shape of the batch retried."""
+    from sednet_tpu_torch.parallel.mesh import (check_divisible,
+                                                gather_objects, local_rows)
+
+    b = np.asarray(batch["points"]).shape[0]
+    check_divisible(b, mesh.size)
+    x0s, sels = batch_draws(batch, cfg, generator)
+    sl = local_rows(b, mesh)
+    local = {k: np.asarray(v)[sl] for k, v in batch.items()}
+    res = predict_shapes(model_type, model_inst, local, cfg,
+                         generator=generator, multi_vote=multi_vote,
+                         fold5drop=fold5drop, tta_fn=tta_fn,
+                         forward_fn=forward_fn,
+                         x0s=None if x0s is None else x0s[sl], sels=sels[sl])
+    return [r for part in gather_objects(res, mesh) for r in part]
+
+
+def predict_loader_mesh(loader, cfg: Config, model_type, model_inst, mesh, *,
+                        save_viz: bool = True, multi_vote: bool = False,
+                        fold5drop: bool = False, out_dir=None, limit=None,
+                        postproc: bool = False):
+    """`predict_loader` data-parallel over the ranks of `mesh`: every rank
+    reads every batch, pads a final partial batch to a multiple of the mesh
+    size with copies of its last shape (`sednet_tpu/predict.py:712-713`,
+    their results dropped), runs `predict_shapes_mesh` with
+    `batch_generator(cfg.seed)`, and rank 0 logs, dumps and post-processes
+    as `predict_loader` does. The spectral cache is not used (JAX's mesh
+    branch bypasses it too). Returns (summary, per-shape results), the
+    same on every rank."""
+    out_dir = out_dir or "predictions/results"
+    tta_fn = make_tta_type_log_prob(model_type, cfg, multi_vote, fold5drop)
+    forward_fn = make_forward(model_inst, fused=cfg.fused_encoder)
+    all_metrics = []
+    sid = loader.starts
+    for batch in loader:
+        b = batch["points"].shape[0]
+        pad = -b % mesh.size
+        if pad:
+            batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                     for k, v in batch.items()}
+        results = predict_shapes_mesh(
+            model_type, model_inst, batch, cfg, mesh,
+            generator=batch_generator(cfg.seed), tta_fn=tta_fn,
+            forward_fn=forward_fn)[:b]
+        if limit:
+            results = results[: max(limit - len(all_metrics), 0)]
+        for i, r in enumerate(results):
+            all_metrics.append(r)
+            if mesh.rank:
+                continue
+            logger.info("ID:%d | inst_iou: %s type_iou: %s inst_recall: %s%s",
+                        sid + i, r["inst_iou"], r["type_iou"],
+                        r["inst_recall"],
+                        " [GUARD-CAPPED]" if r["guard_capped"] else "")
+            item = {key: batch[key][i] for key in batch}
+            if save_viz:
+                save_shape_outputs(out_dir, sid + i, item, r)
+            if postproc:
+                run_postproc(out_dir, sid + i, item, r)
+        sid += b
+        if limit and len(all_metrics) >= limit:
+            break
+    return _summary(all_metrics), all_metrics
+
+
+def _summary(all_metrics) -> dict:
     summary = {
         "inst_iou": float(np.mean([m["inst_iou"] for m in all_metrics])),
         "type_iou": float(np.mean([m["type_iou"] for m in all_metrics])),
@@ -619,14 +714,19 @@ def predict_loader(loader, cfg: Config, model_type, model_inst, *,
                                    for m in all_metrics)),
     }
     logger.info("===========> %s", summary)
-    return summary, all_metrics
+    return summary
+
+
+def _predict_rank(mesh, cfg: Config, kw: dict):
+    """One rank of a data-parallel `run_prediction`."""
+    return run_prediction(cfg, mesh=mesh, device=mesh.device, **kw)
 
 
 def run_prediction(cfg: Config, *, data_root=".", save_viz=True,
                    multi_vote=False, fold5drop=False, out_dir=None,
                    batch_size=8, limit=None, params_type=None,
                    params_inst=None, postproc=False, starts=0,
-                   mesh_devices=0, device=None):
+                   mesh_devices=0, device=None, mesh=None):
     """The test loop of the CLI (`sednet_tpu/predict.py:635`). The dataset
     follows cfg.dataset: "my" tests on the SED-Net EdgeDataset set, anything
     else on ParseNet (reference: generate_predictions_aug.py:90-98,176),
@@ -637,13 +737,40 @@ def run_prediction(cfg: Config, *, data_root=".", save_viz=True,
     cfg.pretrain_model_path (the TYPE model) and
     cfg.pretrain_model_type_path (the INST model), as the reference maps
     them. device None is the CUDA card. Returns (summary, per-shape
-    results) of `predict_loader`."""
-    if mesh_devices and mesh_devices > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1: sharding shape batches over several cards is "
-            "ROADMAP queue 1 item 9")
+    results) of `predict_loader`.
+
+    mesh_devices = M > 1 shards each batch's shapes over M ranks
+    (`predict_loader_mesh`; batch_size divisible by M): in the ranks of
+    `mesh` where one is given, else in M processes started here, one a
+    card (gloo ranks on the CPU under device="cpu"), each reading the
+    models from the config's paths (or from params_type / params_inst's
+    state), rank 0's summary and results returned."""
     logging.basicConfig(level=logging.INFO)
     dev = resolve_device(device)
+    if mesh_devices and mesh_devices > 1:
+        from sednet_tpu_torch.parallel.mesh import check_divisible, spawn
+
+        check_divisible(batch_size, mesh_devices)
+        if mesh is None:
+            states = [None if m is None else
+                      {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                      for m in (params_type, params_inst)]
+            return spawn("sednet_tpu_torch.predict:_predict_rank",
+                         mesh_devices, cfg, dict(
+                             data_root=data_root, save_viz=save_viz,
+                             multi_vote=multi_vote, fold5drop=fold5drop,
+                             out_dir=out_dir, batch_size=batch_size,
+                             limit=limit, params_type=states[0],
+                             params_inst=states[1], postproc=postproc,
+                             starts=starts, mesh_devices=mesh_devices),
+                         device=dev.type,
+                         timeout=float("inf"))
+        dev = mesh.device
+    if isinstance(params_type, dict) or isinstance(params_inst, dict):
+        # a spawned rank's copy of the caller's models, as state dicts
+        params_type, params_inst = (
+            _model_from_state(p, cfg, dev) if isinstance(p, dict) else p
+            for p in (params_type, params_inst))
     if params_type is None:
         params_type = load_checkpoint(cfg.pretrain_model_path, cfg, dev)
     if params_inst is None:
@@ -659,17 +786,32 @@ def run_prediction(cfg: Config, *, data_root=".", save_viz=True,
         limit = cfg.num_test
     loader = BatchLoader(ds, batch_size, shuffle=False, drop_last=False,
                          starts=starts)
+    if mesh is not None:
+        return predict_loader_mesh(loader, cfg, params_type, params_inst,
+                                   mesh, save_viz=save_viz,
+                                   multi_vote=multi_vote, fold5drop=fold5drop,
+                                   out_dir=out_dir, limit=limit,
+                                   postproc=postproc)
     return predict_loader(loader, cfg, params_type, params_inst,
                           save_viz=save_viz, multi_vote=multi_vote,
                           fold5drop=fold5drop, out_dir=out_dir, limit=limit,
                           postproc=postproc)
 
 
+def _model_from_state(state: dict, cfg: Config, device):
+    """A SEDNet of cfg carrying `state` (numpy arrays or tensors), on
+    device, in eval mode."""
+    model = SEDNet.from_config(cfg)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return model.to(device).eval()
+
+
 def main(argv=None):
     """The CLI, with the reference's positional flags (readme.md:18-22):
     <cfg> [NoSave] [multi_vote] [fold5drop], "postproc" anywhere after the
     config; --starts S skips the first S test shapes, --batch-size B,
-    --mesh N (N > 1 is not ported)."""
+    --mesh N (N ranks, one process a card, `run_prediction`'s
+    mesh_devices)."""
     argv = sys.argv[1:] if argv is None else argv
     mesh_devices, starts, batch_size = 0, 0, 8
     pos = []

@@ -24,8 +24,14 @@ What differs from JAX, by design:
     written. The preload reads all three formats of `weights.load_params`
     (`.npz`, the reference's `.pth`, orbax) and the optimizer resumes from
     JAX's orbax `latest_opt` as well as from the port's `latest_opt.pt`;
-  * one device: `mesh_shape` > 1 raises (item 9). On one device the loss
-    is the global-batch loss that JAX's data-parallel step computes.
+  * data parallelism (`mesh_shape` > 1) is one process a card in a
+    `torch.distributed` group (`parallel.mesh`), not one process over a
+    device mesh: each rank runs the forward on its B/M shapes, the
+    outputs are all-gathered (each rank's own part keeping its gradient),
+    every rank computes the whole batch's loss with the same draws, and
+    the gradients are summed over the ranks in one all-reduce. The step
+    is so the one-process step on the whole batch, as JAX's GSPMD step
+    is the single-device one: no loss term is averaged per rank.
 
 Every edge convolution of the forward runs kernel K6 on the card, and the
 backward its gradient, kernel K6b (`ops.graph.gather_reduce`); the kNN
@@ -68,21 +74,18 @@ class TrainState(NamedTuple):
 
 def build_model(cfg: Config) -> SEDNet:
     """The SEDNet that `sednet_tpu/train.py build_model` builds (mode 5 with
-    normals, else 0; the normal head under `predict_normal`). bf16 compute
-    and the direct GroupNorm edge convolution are not ported and raise."""
-    if cfg.model_bf16:
-        raise NotImplementedError("model_bf16: bf16 compute is not ported")
-    if not cfg.factored_gn:
-        raise NotImplementedError(
-            "factored_gn=False: the direct GroupNorm edge convolution is not "
-            "ported; the port's encoder is the factored one")
+    normals, else 0; the normal head under `predict_normal`), computing in
+    bf16 under `model_bf16` and with the direct GroupNorm edge convolution
+    where `factored_gn` is off."""
     return SEDNet(emb_size=cfg.embed, num_primitives=cfg.num_primitives,
                   mode=5 if cfg.normals else 0, k=cfg.knn,
                   normal_metric_w=cfg.normal_metric_W,
                   w_pos_enc=cfg.w_pos_enc, edge_module=cfg.edge_module,
                   late_fusion=cfg.late_fusion,
                   combine_label_prim=cfg.combine_label_prim,
-                  predict_normal=cfg.predict_normal)
+                  predict_normal=cfg.predict_normal,
+                  dtype=torch.bfloat16 if cfg.model_bf16 else torch.float32,
+                  factored_gn=cfg.factored_gn)
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
@@ -129,16 +132,34 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def make_loss_fn(model: SEDNet, cfg: Config):
+def sharded_forward(model: SEDNet, x, mesh=None):
+    """model(x) on the whole batch x (B, N, C): without a mesh, directly;
+    with one (a one-rank mesh too), each rank's forward on its B/M shapes,
+    the outputs all-gathered in rank order with the rank's own part
+    carrying its gradient (`parallel.mesh.all_gather_into`)."""
+    if mesh is None:
+        return model(x)
+    from sednet_tpu_torch.models.sednet import SEDNetOutput
+    from sednet_tpu_torch.parallel.mesh import all_gather_into, local_rows
+
+    out = model(x[local_rows(x.shape[0], mesh)])
+    return SEDNetOutput(*(None if t is None else all_gather_into(t, mesh)
+                          for t in (out.embedding, out.type_log_prob,
+                                    out.type_logits, out.edge_logits,
+                                    out.normals_pred)))
+
+
+def make_loss_fn(model: SEDNet, cfg: Config, mesh=None):
     """loss_fn(batch, draws=None, generator=None) -> (total, metrics): the
     four-term loss of `sednet_tpu/train.py make_train_step`, differentiable
     in the model's parameters; draws / generator feed the triplet loss
-    (`losses.triplet_loss`)."""
+    (`losses.triplet_loss`). mesh: the whole batch's loss on every rank
+    from the gathered outputs (`sharded_forward`)."""
     tri_cfg = TripletConfig(margin=cfg.triplet_margin,
                             max_segments=cfg.ms_max_clusters)
 
     def loss_fn(batch, draws=None, generator=None):
-        out = model(model_input(batch, cfg.normals))
+        out = sharded_forward(model, model_input(batch, cfg.normals), mesh)
         prim = remap_train_types(batch["prim"])
         emb_loss = triplet_loss(out.embedding, batch["labels"], tri_cfg,
                                 draws=draws, generator=generator)
@@ -163,12 +184,14 @@ def make_loss_fn(model: SEDNet, cfg: Config):
 
 
 def make_train_step(model: SEDNet, optimizer: torch.optim.Optimizer,
-                    cfg: Config):
+                    cfg: Config, mesh=None):
     """train_step(batch, draws=None, generator=None) -> metrics: one
     gradient step of the model's parameters (loss, backward, the optional
     global-norm clip, the optimizer's update); metrics are 0-d tensors on
-    the model's device."""
-    loss_fn = make_loss_fn(model, cfg)
+    the model's device. mesh: the data-parallel step (the module
+    docstring): every rank passes the whole batch and the same draws, and
+    its gradients are summed over the ranks before the clip."""
+    loss_fn = make_loss_fn(model, cfg, mesh)
     params = list(model.parameters())
 
     def train_step(batch, draws=None, generator=None):
@@ -180,6 +203,10 @@ def make_train_step(model: SEDNet, optimizer: torch.optim.Optimizer,
             # gradient 0 under jax.grad, and optax's AdamW still decays it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            from sednet_tpu_torch.parallel.mesh import all_reduce_grads
+
+            all_reduce_grads(params, mesh)
         if cfg.grad_clip > 0:
             # clip BEFORE the adam moments, as optax chains it, so that one
             # spiked batch cannot poison them
@@ -190,10 +217,10 @@ def make_train_step(model: SEDNet, optimizer: torch.optim.Optimizer,
     return train_step
 
 
-def make_eval_step(model: SEDNet, cfg: Config):
+def make_eval_step(model: SEDNet, cfg: Config, mesh=None):
     @torch.no_grad()
     def eval_step(batch):
-        out = model(model_input(batch, cfg.normals))
+        out = sharded_forward(model, model_input(batch, cfg.normals), mesh)
         prim = remap_train_types(batch["prim"])
         emb_loss, _, _ = pull_push_embedding_loss(
             out.embedding, batch["labels"],
@@ -338,9 +365,11 @@ class CheckpointManager:
     JAX's `save_params_npz` format) and the optimizer's state as
     `latest_opt.pt` (reference: train_sed_net.py:367-395)."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, write: bool = True):
         self.root = os.path.abspath(root)
-        os.makedirs(self.root, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.root, exist_ok=True)
         self.best_total = float("inf")
         self.best_inst = float("inf")
         self.best_type = float("inf")
@@ -355,8 +384,11 @@ class CheckpointManager:
                             ("best_type", type_loss)):
             if value < getattr(self, name):
                 setattr(self, name, value)
-                save_params_npz(self.path(name), model)
+                if self.write:
+                    save_params_npz(self.path(name), model)
                 saved.append(name)
+        if not self.write:
+            return saved
         save_params_npz(self.path("latest"), model)
         if optimizer is not None:
             # optimizer state for resume (reference: pretrain_opti_path,
@@ -376,21 +408,24 @@ def _mean(accum, key):
 def train_loader(cfg: Config, model: SEDNet, loader, test_loader, *,
                  optimizer: torch.optim.Optimizer, run_dir: str,
                  max_steps: int | None = None, log_every: int = 10,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
     """The training loop of `sednet_tpu/train.py:388-455` over any batch
     loaders (numpy batches, `data.BatchLoader` or an iterable like it), on
     the model's device: warmup, a step a batch, eval every eval_T steps and
     at max_steps, the scheduler, checkpoints under `run_dir/ckpts` and
     `run_dir/metrics.jsonl`. generator: the triplet draws' (default: seeded
-    with cfg.seed). Returns (TrainState, history)."""
+    with cfg.seed). mesh: the data-parallel loop, every rank over the same
+    batches (`make_train_step`), rank 0 alone writing the records and
+    checkpoints. Returns (TrainState, history)."""
     device = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    train_step = make_train_step(model, optimizer, cfg)
-    eval_step = make_eval_step(model, cfg)
+    train_step = make_train_step(model, optimizer, cfg, mesh)
+    eval_step = make_eval_step(model, cfg, mesh)
     sched = (CosineScheduler(cfg.lr) if cfg.sche == "cos"
              else PlateauScheduler(cfg.lr, patience=cfg.patience))
-    ckpts = CheckpointManager(os.path.join(run_dir, "ckpts"))
+    writer = mesh is None or mesh.rank == 0
+    ckpts = CheckpointManager(os.path.join(run_dir, "ckpts"), write=writer)
     history = []
     step = 0
     train_accum: list[dict] = []
@@ -400,7 +435,8 @@ def train_loader(cfg: Config, model: SEDNet, loader, test_loader, *,
         raise ValueError(
             f"empty train loader at batch_size={cfg.batch_size} (drop_last): "
             "the max_steps loop would spin through empty epochs forever")
-    with open(os.path.join(run_dir, "metrics.jsonl"), "a") as metrics_log:
+    with open(os.path.join(run_dir, "metrics.jsonl") if writer
+              else os.devnull, "a") as metrics_log:
         for epoch in range(n_epochs):
             if done:
                 break
@@ -477,31 +513,51 @@ def init_training(cfg: Config, device):
 
 def train(cfg: Config, *, data_root: str = ".", max_steps: int | None = None,
           run_dir: str | None = None, use_edge_dataset: bool = True,
-          log_every: int = 10, device=None):
+          log_every: int = 10, device=None, mesh=None):
     """The training entry of `sednet_tpu/train.py train`: the model, its
     optimizer and the draws' generator (`init_training`), the h5 datasets
     under data_root (ParseNet, mixed with the SED-Net edge set where it
     exists), then `train_loader`. On the card unless device says
-    otherwise. Returns (TrainState, history)."""
+    otherwise. cfg.mesh_shape = M > 1 trains data-parallel over M ranks
+    (the batch divisible by M): in the ranks of `mesh` where one is given,
+    else in M processes started here (`parallel.mesh.spawn`; card r for
+    rank r, or gloo ranks on the CPU under device="cpu"), whose rank 0's
+    final state comes back. Returns (TrainState, history)."""
     from sednet_tpu_torch.data import (BatchLoader, EdgeDataset, MixedDataset,
                                        ParseNetDataset, PrefetchLoader)
 
     dev = resolve_device(device)
-    if cfg.mesh_shape is not None and cfg.mesh_shape > 1:
-        raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape}: the port trains on one device; "
-            "multi-device is ROADMAP queue 1 item 9")
     model_name = cfg.model_path.format("mix", cfg.lr, cfg.mode, cfg.knn)
     run_dir = run_dir or os.path.join("trains", model_name)
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
-    # the entry script beside the config, as the reference's run directory
-    # keeps it (train_sed_net.py:73-79)
-    shutil.copy(os.path.abspath(__file__),
-                os.path.join(run_dir, "train_entry.py"))
+    size = cfg.mesh_shape or 1
+    if size > 1:
+        from sednet_tpu_torch.parallel.mesh import check_divisible
+
+        check_divisible(cfg.batch_size, size)
+        if mesh is None:
+            return _train_spawned(cfg, dict(
+                data_root=data_root, max_steps=max_steps, run_dir=run_dir,
+                use_edge_dataset=use_edge_dataset, log_every=log_every),
+                dev)
+        if mesh.size != size:
+            raise ValueError(f"mesh_shape={size}, the mesh has {mesh.size} "
+                             "ranks")
+        dev = mesh.device
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(run_dir, exist_ok=True)
+        cfg.save(os.path.join(run_dir, "config.json"))
+        # the entry script beside the config, as the reference's run
+        # directory keeps it (train_sed_net.py:73-79)
+        shutil.copy(os.path.abspath(__file__),
+                    os.path.join(run_dir, "train_entry.py"))
     logging.basicConfig(level=logging.INFO)
 
     model, optimizer, generator = init_training(cfg, dev)
+    if mesh is not None:
+        from sednet_tpu_torch.parallel.mesh import replicate
+
+        replicate(model, mesh)
 
     kw = dict(normals=cfg.normals, num_points=cfg.num_points,
               max_segments=cfg.ms_max_clusters)
@@ -519,7 +575,49 @@ def train(cfg: Config, *, data_root: str = ".", max_steps: int | None = None,
                               seed=cfg.seed)
     return train_loader(cfg, model, loader, test_loader, optimizer=optimizer,
                         run_dir=run_dir, max_steps=max_steps,
-                        log_every=log_every, generator=generator)
+                        log_every=log_every, generator=generator, mesh=mesh)
+
+
+def _train_rank(mesh, cfg: Config, kw: dict):
+    """One rank of a data-parallel `train`: rank 0's model and optimizer
+    state, step and history go back to the caller."""
+    state, history = train(cfg, mesh=mesh, device=mesh.device, **kw)
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(), "step": state.step,
+            "history": history}
+
+
+def _train_spawned(cfg: Config, kw: dict, dev):
+    """`train` with mesh_shape ranks: one process a rank (card r for rank
+    r, or gloo on the CPU where dev is the CPU), rank 0's final state
+    loaded into a model and optimizer on dev."""
+    from sednet_tpu_torch.parallel.mesh import spawn
+
+    out = spawn("sednet_tpu_torch.train:_train_rank", cfg.mesh_shape, cfg,
+                kw, device=dev.type,
+                timeout=float("inf"))
+    model = build_model(cfg)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in out["model"].items()})
+    model.to(dev)
+    optimizer = make_optimizer(cfg, model.parameters())
+    optimizer.load_state_dict(_opt_state_to_torch(out["optimizer"]))
+    return TrainState(model, optimizer, out["step"]), out["history"]
+
+
+def _opt_state_to_torch(sd):
+    """An optimizer state dict whose tensors crossed the process queue as
+    numpy arrays."""
+    def conv(v):
+        if isinstance(v, np.ndarray):
+            return torch.from_numpy(v)
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return v
+
+    return conv(sd)
 
 
 def main(argv=None):

@@ -321,11 +321,14 @@ def test_run_prediction_matches_jax(h5_root, tmp_path, dataset, starts,
             np.testing.assert_array_equal(a, b, err_msg=name)
 
 
+# mesh_devices > 1, once refused, shards the batches over ranks
+# (tests/test_torch_port_parallel.py); a batch size the mesh does not
+# divide raises JAX's error before anything starts.
 def test_run_prediction_refuses_what_is_not_ported(h5_root, monkeypatch):
     cfg = cfg_port.Config(**_cli_config(h5_root, ""))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="3 not divisible by mesh size 2"):
         predict_port.run_prediction(cfg, data_root=h5_root, mesh_devices=2,
-                                    device="cpu")
+                                    batch_size=3, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         predict_port.run_prediction(cfg, data_root=h5_root)

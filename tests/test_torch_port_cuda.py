@@ -246,35 +246,16 @@ def test_mean_shift_kernel_keeps_float32_accuracy(cuda, bw):
     assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
 
 
-def _bf16_rounding_slack(x, inv_b2):
-    """Per element of the bf16 step's output (B, N, E), the most that the
-    weights whose bf16 rounding float32 arithmetic may decide either way
-    can move it: a weight k (float64, on the bf16-rounded inputs) is
-    ambiguous when k (1 - d) and k (1 + d) round to different bf16 values,
-    d bounding the kernel's relative error in k: twice the float32 plain
-    version's largest error in s = x_i . x_c on these inputs (measured
-    against float64) times 1 / b^2, the rounding of the scaled argument
-    (at most 75 in size) and expf's; rounding it the other way moves it by
-    one bf16 step, at most k 2^-7, and the row by that times
-    |x_c - out| / den."""
-    xb = x.to(torch.bfloat16).double()
-    out = []
-    for i in range(x.shape[0]):
-        s = xb[i] @ xb[i].T
-        s_err = float((xb[i].float() @ xb[i].float().T - s).abs().max())
-        arg = torch.clamp_min((s - 1.0) * inv_b2[i].double(), -75.0)
-        k = torch.exp(arg)
-        d = 2.0 * float(inv_b2[i]) * s_err + 75 * 2.0 ** -24 + 2.0 ** -21
-        amb = ((k * (1 - d)).to(torch.bfloat16)
-               != (k * (1 + d)).to(torch.bfloat16))
-        den = k.sum(1, keepdim=True)
-        a = torch.where(amb, k * 2.0 ** -7, 0.0) / den
-        o = (k.to(torch.bfloat16).double() @ xb[i]) / den
-        o = o / o.norm(dim=1, keepdim=True)
-        # |x_c - o| <= |x_c| + |o|, elementwise; the normalisation's
-        # factor stays within 2 of 1 for these clustered rows
-        out.append(2.0 * (a @ xb[i].abs() + a.sum(1, keepdim=True) * o.abs()))
-    return torch.stack(out)
+def _bf16_rounding_slack(name, got, plain, x, inv_b2):
+    """The float64 rule of the bf16 step (`ops.bf16_rule.check_bf16_step`,
+    the one the smoke applies): each row within twice the float32 plain
+    version's largest error (at least 1e-6, a unit row's rounding), but
+    for the weights within float32's error of a bf16 rounding midpoint,
+    each of which may round to either of its two bf16 neighbours. Returns
+    its record; raises where a row fails."""
+    from sednet_tpu_torch.ops.bf16_rule import check_bf16_step
+
+    return check_bf16_step(name, got, plain, x, inv_b2, floor=1e-6)
 
 
 # The bf16 branch (`ms_bf16`, csrc/mean_shift_bf16.cu) for one shape (K2)
@@ -285,11 +266,10 @@ def _bf16_rounding_slack(x, inv_b2):
 # against the same function in float64 on the bf16-rounded inputs
 # (`mean_shift_step_plain(..., bf16=True)` on float64). Each element errs
 # at most twice as much as the float32 plain version's largest error (at
-# least 1e-6, a unit row's rounding), plus the slack of the weights whose
-# bf16 rounding float32 may decide either way (`_bf16_rounding_slack`):
-# the card's sums and the plain version's may round such a weight apart,
-# which at a few thousand points the plain version itself does (so the
-# smoke holds the kernel to twice the plain error alone, at 10000). And
+# least 1e-6, a unit row's rounding), but for the weights whose bf16
+# rounding float32 may decide either way, each held to one of its two bf16
+# neighbours (`_bf16_rounding_slack`, the smoke's rule): the card's sums
+# and the plain version's may round such a weight apart. And
 # the kernel does round the weights: its mean error against the rounded
 # function is below its mean error against the unrounded one.
 def _bf16_kernel_against_float64(cuda, n, e, b):
@@ -312,11 +292,8 @@ def _bf16_kernel_against_float64(cuda, n, e, b):
                                          inv_b2.double(), bf16=True)
         assert got.shape == x.shape and got.dtype == torch.float32
         err = (got.double() - exact).abs()
-        err_plain = float((plain.double() - exact).abs().max())
-        slack = _bf16_rounding_slack(x, inv_b2)
-        over = err - (max(2.0 * err_plain, 1e-6) + slack)
-        assert float(over.max()) <= 0.0, (bw, float(err.max()), err_plain,
-                                          int((over > 0).sum()))
+        _bf16_rounding_slack(f"n={n} e={e} b={b} bw={bw}", got, plain, x,
+                             inv_b2)
         if n > 1 and bw > 0.05:
             xb = x.to(torch.bfloat16).double()
             unrounded = ck.mean_shift_step_plain(xb, xb, inv_b2.double())
@@ -1503,3 +1480,124 @@ def test_export_on_card_launches_the_kernels(cuda, tmp_path):
     assert (after[0] - before[0], after[1] - before[1]) == (3, 3)
     for name in ("embedding", "type_log_prob", "edge_logits"):
         assert float((got[name] - getattr(ref, name)).abs().max()) <= 1e-6
+
+
+# K1 with its column-id table: the columns of p permuted, the permutation
+# as the ids, lists the unpermuted answer bit for bit (ties to the lower
+# original index, on tie-heavy rows too), one shape and a batch, both
+# metrics and largest; and `spatial_sort` (the locality order of rows and
+# columns, the table the sorted columns' original indices) gives the
+# unsorted call's indices and distances.
+@pytest.mark.cuda
+@pytest.mark.parametrize("largest", [False, True])
+@pytest.mark.parametrize("d,metric,k", [(3, "sqdist", 50), (6, "points_normals", 64),
+                                        (64, "sqdist", 64), (140, "sqdist", 128)])
+def test_topk_column_ids_sorted_and_unsorted(cuda, d, metric, k, largest):
+    rng = np.random.RandomState(21)
+    if metric == "points_normals":
+        x = np.stack([_points_normals(rng, 2003) for _ in range(2)])
+    else:
+        x = rng.randn(2, 2003, d).astype(np.float32)
+        x[:, 1000:1100] = x[:, :100]          # whole rows repeat: ties
+    q = torch.from_numpy(x).to(cuda)
+    i0, d0 = flash_topk(q, q, k, metric=metric, largest=largest,
+                        spatial_sort=False, return_distances=True)
+    perm = torch.from_numpy(np.stack([rng.permutation(2003)
+                                      for _ in range(2)])).to(cuda)
+    qp = torch.gather(q, 1, perm[..., None].expand(-1, -1, q.shape[-1]))
+    before = flash_topk.launches
+    d1, i1 = torch.ops.sednet.topk(q, qp.contiguous(), k, metric, 1.0,
+                                   largest, perm.to(torch.int32).contiguous())
+    assert flash_topk.launches == before + 1
+    assert torch.equal(i1, i0) and torch.equal(d1, d0)
+    i2, d2 = flash_topk(q, q, k, metric=metric, largest=largest,
+                        spatial_sort=True, return_distances=True)
+    assert torch.equal(i2, i0) and torch.equal(d2, d0)
+    cmp = compare_with_plain(q, q, k, i2, d2, metric=metric, largest=largest)
+    assert cmp["bad_rows"] == 0, cmp
+    # one shape, p shared
+    i3 = flash_topk(q[0], q[0], k, metric=metric, largest=largest,
+                    spatial_sort=True)
+    assert torch.equal(i3, i0[0])
+
+
+# The model_bf16 forward on the card against the CPU's bf16 forward on the
+# same parameters and the card's graphs: both float32 outputs; the card
+# within twice the CPU bf16 forward's distance from the CPU float64
+# forward (the two bf16 stacks round apart by an ulp here and there).
+@pytest.mark.cuda
+def test_model_bf16_forward_on_card_matches_cpu(cuda):
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.models.sednet import SEDNet
+
+    torch.manual_seed(0)
+    model = SEDNet.from_config(Config(knn=16, model_bf16=True))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.2)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(np.stack([_points_normals(rng, 2000)
+                                   for _ in range(2)]))
+    graphs = []
+    card = copy.deepcopy(model).to(cuda)
+    for i in (1, 2, 3):    # the card's three graphs, K1's
+        getattr(card.encoder, f"conv{i}").register_forward_hook(
+            lambda m, a, o: graphs.append(a[1].cpu()))
+    with torch.no_grad():
+        got = card(x.to(cuda))
+        cpu = model(x, graphs=graphs)
+        m64 = copy.deepcopy(model).double()
+        for mod in m64.modules():
+            if hasattr(mod, "dtype") and not isinstance(mod, torch.Tensor):
+                mod.dtype = torch.float64
+        ref = m64(x.double(), graphs=graphs)
+    for name in ("embedding", "type_log_prob", "edge_logits"):
+        g, c, r = (getattr(o, name) for o in (got, cpu, ref))
+        assert g.dtype == c.dtype == torch.float32
+        d_card = float((g.cpu().double() - r).abs().max())
+        d_cpu = float((c.double() - r).abs().max())
+        assert d_card <= 2.0 * d_cpu, (name, d_card, d_cpu)
+
+
+# ring_knn on a one-rank NCCL group: K1 itself, bit for bit.
+@pytest.mark.cuda
+def test_ring_knn_world_size_one_is_k1(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from sednet_tpu_torch.parallel import init_mesh, ring_knn
+
+    rng = np.random.RandomState(4)
+    mesh = init_mesh(0, 1, str(tmp_path), device=cuda)
+    try:
+        for x, metric in ((_points_normals(rng, 3001), "points_normals"),
+                          (rng.randn(3001, 64).astype(np.float32), "sqdist")):
+            t = torch.from_numpy(x).to(cuda)
+            before = flash_topk.launches
+            idx, dist_ = ring_knn(t, 32, mesh, metric=metric)
+            assert flash_topk.launches == before + 1
+            want = flash_topk(t, t, 32, metric=metric, return_distances=True)
+            assert torch.equal(idx, want[0]) and torch.equal(dist_, want[1])
+    finally:
+        dist.destroy_process_group()
+
+
+# K2 on a row shard (M query rows against all N columns, the sharded
+# shift's step): each row the bits of the whole shape's step, and within
+# atol 1e-5 of the float32 plain version, as the square step is held.
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,e", [(2500, 10000, 128), (333, 1001, 140),
+                                   (64, 65, 32)])
+def test_mean_shift_step_row_shard(cuda, m, n, e):
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(_clustered(rng, 1, n, e)[0]).to(cuda)
+    bw = torch.tensor(0.15, device=cuda)
+    r0 = (n - m) // 2
+    before = ck.mean_shift_step.launches
+    part = ck.mean_shift_step(x[r0:r0 + m].contiguous(), x, bw)
+    whole = ck.mean_shift_step(x, x, bw)
+    assert ck.mean_shift_step.launches == before + 2
+    assert part.shape == (m, e)
+    assert torch.equal(part, whole[r0:r0 + m])
+    plain = ck.mean_shift_step_plain(x[None, r0:r0 + m], x[None],
+                                     (1.0 / (bw * bw)).reshape(1))[0]
+    torch.testing.assert_close(part, plain, atol=1e-5, rtol=0)

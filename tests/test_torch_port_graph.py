@@ -116,13 +116,18 @@ def test_locality_order_matches_jax(cloud):
     assert differ <= xyz.shape[0] * xyz.shape[1] // 1000
 
 
-# Only xyz (D <= 3) is ported; wider rows (the JAX function's PCA branch)
-# raise, and D < 3 is padded with zero axes as JAX pads it.
+# Wider rows, once refused, take the JAX function's PCA branch (held to
+# JAX's order in tests/test_torch_port_row_order.py) and give a
+# permutation; a tensor that is not (B, N, D) raises, and D < 3 is padded
+# with zero axes as JAX pads it.
 def test_locality_order_takes_xyz_only():
     rng = np.random.RandomState(5)
-    with pytest.raises(ValueError, match="D <= 3"):
-        locality_order(torch.from_numpy(rng.randn(1, 50, 6).astype(
-            np.float32)))
+    with pytest.raises(ValueError, match="must be \\(B, N, D\\)"):
+        locality_order(torch.from_numpy(rng.randn(50, 6).astype(np.float32)))
+    wide = locality_order(torch.from_numpy(rng.randn(1, 50, 6).astype(
+        np.float32)))
+    assert torch.equal(torch.sort(wide[0]).values,
+                       torch.arange(50, dtype=torch.int32))
     xy = rng.randn(1, 300, 2).astype(np.float32)
     np.testing.assert_array_equal(locality_order(torch.from_numpy(xy)),
                                   _jax_orders(xy))

@@ -530,3 +530,69 @@ def test_fused_route_emulation_flags_exactly_the_tied_rows(rng):
                                atol=1e-5 * float(want[3].max()) * amax)
     np.testing.assert_allclose(out[2].numpy(), want[2], rtol=0,
                                atol=1e-5 * float(want[3].max()) * amax ** 2)
+
+
+def _rule_inputs(seed=0, b=2, n=700, e=32):
+    rng = np.random.RandomState(seed)
+    c = rng.randn(b, 6, e)
+    lab = rng.randint(0, 6, (b, n))
+    x = np.stack([c[i][lab[i]] for i in range(b)]) + 0.05 * rng.randn(b, n, e)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    return (torch.tensor(x, dtype=torch.float32),
+            1.0 / torch.tensor([0.15, 0.2][:b]) ** 2)
+
+
+# The bf16 step's float64 rule (`ops.bf16_rule.check_bf16_step`), on the
+# CPU: the plain version at two row blocks passes; a row that rounds one
+# held-apart weight to its other bf16 neighbour passes, that weight named;
+# the same row moved by as much in a direction no weight explains fails,
+# with the factor 2 unchanged.
+def test_bf16_rule_plain_passes():
+    from sednet_tpu_torch.ops.bf16_rule import check_bf16_step
+
+    x, inv = _rule_inputs()
+    plain = ck.mean_shift_step_plain(x, x, inv, bf16=True)
+    other = ck.mean_shift_step_plain(x, x, inv, row_block=64, bf16=True)
+    rec = check_bf16_step("plain", other, plain, x, inv)
+    assert rec["rows_failed"] == 0 and rec["held_apart"] > 0
+    assert rec["f64_err"] <= rec["bound"] == 2.0 * rec["plain_f64_err"]
+
+
+def test_bf16_rule_holds_apart_a_rounding_and_catches_the_rest():
+    from sednet_tpu_torch.ops.bf16_rule import bf16_neighbours, check_bf16_step
+
+    x, inv = _rule_inputs()
+    # a reference far better than float32's sums (the float64 function
+    # rounded once), so that one weight's rounding stands out of the bound
+    plain = ck.mean_shift_step_plain(x.double(), x.double(), inv.double(),
+                                     bf16=True).float()
+    xb = x[0].to(torch.bfloat16).double()
+    s = xb @ xb.T
+    k = torch.exp(torch.clamp_min((s - 1.0) * float(inv[0]), -75.0))
+    kb, nb = bf16_neighbours(k)
+    # of the weights within a hundredth of a bf16 step of their midpoint,
+    # the one whose rounding moves its row most
+    near = (k - 0.5 * (kb + nb)).abs() < 1e-2 * (nb - kb).abs()
+    reach = torch.where(near, (nb - kb).abs() / k.sum(1, keepdim=True), 0.0)
+    i, c = divmod(int(reach.argmax()), k.shape[1])
+    assert float(reach[i, c]) > 0.0
+
+    def row_with(weights):
+        o = (weights[i] @ xb) / k[i].sum()
+        return (o / o.norm()).float()
+
+    flipped = kb.clone()
+    flipped[i, c] = nb[i, c]
+    got = plain.clone()
+    got[0, i] = row_with(flipped)
+    rec = check_bf16_step("flip", got, plain, x, inv)
+    assert rec["rows_fitted"] >= 1 and [0, i, c] in rec["held_named"]
+    # the same size of error in a direction no weight gives
+    moved = row_with(kb).double()
+    delta = (got[0, i].double() - moved).norm()
+    bad = plain.clone()
+    bad[0, i] = (moved + delta * torch.roll(moved, 1) / moved.norm()).float()
+    rec = check_bf16_step("bad", bad, plain, x, inv, raise_on_fail=False)
+    assert rec["rows_failed"] == 1 and rec["failed_named"][0]["at"] == [0, i]
+    with pytest.raises(AssertionError):
+        check_bf16_step("bad", bad, plain, x, inv)

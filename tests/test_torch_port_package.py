@@ -47,7 +47,13 @@ def test_import_loads_no_jax():
                  "sednet_tpu_torch.postproc.inst_cluster",
                  "sednet_tpu_torch.gen_vis", "sednet_tpu_torch.utils.grid_vis",
                  "sednet_tpu_torch.cluster.baselines",
-                 "sednet_tpu_torch.data.native"):
+                 "sednet_tpu_torch.data.native",
+                 "sednet_tpu_torch.ops.bf16_rule",
+                 "sednet_tpu_torch.parallel",
+                 "sednet_tpu_torch.parallel.mesh",
+                 "sednet_tpu_torch.parallel.intra_shape",
+                 "sednet_tpu_torch.parallel.big_forward",
+                 "sednet_tpu_torch.parallel.dryrun"):
         assert name in MODULES
     # nor matplotlib or sklearn, which the grid renderer and the baselines
     # import when called (the card's machine has neither)
@@ -72,6 +78,37 @@ def test_default_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         load_models(os.path.join(ROOT, "checkpoints", "bench_10k.npz"))
     assert sednet_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+# The multi-device entry points run on the cards unless asked for the
+# CPU: without CUDA they raise before starting a rank.
+def test_mesh_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from sednet_tpu_torch.config import Config
+    from sednet_tpu_torch.predict import run_prediction
+    from sednet_tpu_torch.train import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_prediction(Config(), mesh_devices=2, batch_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(Config(mesh_shape=2, batch_size=2), run_dir=str(tmp_path))
+
+
+# So do the parallel package's own: a mesh, its ranks and the dry run take
+# the card unless given "cpu" (the dry run's CLI through --cpu).
+def test_parallel_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from sednet_tpu_torch.parallel import dryrun, init_mesh, spawn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_mesh(0, 1, str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn("sednet_tpu_torch.parallel.dryrun:dryrun_rank", 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["2"])
+    assert not os.listdir(tmp_path)
 
 
 def test_build_targets_sm90a_and_keys_on_sources():

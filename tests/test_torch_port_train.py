@@ -227,11 +227,20 @@ def test_flat_from_params_inverts_params_from_flat(tmp_path):
         np.testing.assert_array_equal(v, flat[k])
 
 
+# Both flags, once refused, now build: bf16 compute with float32
+# parameters, and the direct edge convolution in every layer.
 @pytest.mark.parametrize("field,value", [("model_bf16", True),
                                          ("factored_gn", False)])
 def test_build_model_refuses_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        ttrain.build_model(Config(**{field: value}))
+    model = ttrain.build_model(Config(**{field: value}))
+    convs = [model.encoder.conv1, model.encoder.conv2, model.encoder.conv3]
+    if field == "model_bf16":
+        assert model.dtype == torch.bfloat16
+        assert all(c.dtype == torch.bfloat16 for c in convs)
+    else:
+        assert model.dtype == torch.float32
+        assert not any(c.factored_gn for c in convs)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 # An orbax directory and a reference .pth, once refused, now give the
@@ -260,10 +269,13 @@ def test_load_params_names_what_is_not_ported(path, tmp_path):
         assert torch.equal(got[k], want[k]), k
 
 
+# mesh_shape > 1, once refused, trains data-parallel
+# (tests/test_torch_port_parallel.py); a batch the mesh does not divide
+# raises JAX's error before anything starts.
 def test_train_needs_the_card_or_cpu_and_one_device(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.train(Config(mesh_shape=2), run_dir=str(tmp_path),
-                     device="cpu")
+    with pytest.raises(ValueError, match="not divisible by mesh size 2"):
+        ttrain.train(Config(mesh_shape=2, batch_size=3),
+                     run_dir=str(tmp_path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main([os.path.join(ROOT, "configs", "config_SEDNet_normal.yml"),
