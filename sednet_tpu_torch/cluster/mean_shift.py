@@ -25,6 +25,12 @@ step, which gives the rows of the early exit. The finalize half reads the
 bandwidths, runs NMS, reads the cluster counts once, and retries the
 shapes with too many clusters. `guard_mean_shift` (one shape) keeps the
 loop that reads each step's movement on the host and stops.
+
+While a profiler runs, the finalize half records, once a batch, the counts
+(`utils.tracing.count`) `cluster/ms_steps_run`, the steps launched;
+`cluster/ms_steps_needed`, those up to and including the one that set the
+tol flag (the async half counts the steps after it on the device); and
+`cluster/guard_retries`, the guard's attempts after the batch pass.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from sednet_tpu_torch.ops.cuda_kernels import (colmax, kernel_width,
                                                step_columns)
 from sednet_tpu_torch.ops.flash_topk import K_MAX, flash_topk
 from sednet_tpu_torch.ops.guard import guard_sqrt
+from sednet_tpu_torch.utils.tracing import count, tracing_on
 
 DEFAULT_MS_TOL = 1e-6
 _MIN_BANDWIDTH = 0.003
@@ -101,17 +108,20 @@ def _iterate_until(step, x, iterations: int, tol: float):
     return cur
 
 
-def _iterate_on_device(step, x, iterations: int, tol: float):
+def _iterate_on_device(step, x, iterations: int, tol: float, after=None):
     """`_iterate_until` without a host read: every step runs, and once a
     step has moved no coordinate by more than tol, the steps after it keep
     its rows (torch.where on a done flag held on the device). The steps
     after the exit still cost their time: that is the price of queuing
-    the loop without waiting on the device."""
+    the loop without waiting on the device. after: a 0-d int32 tensor on
+    x's device that gains one for each step launched after the exit."""
     cur = x
     done = torch.zeros((), dtype=torch.bool, device=x.device)
     for _ in range(iterations):
         nxt = step(cur)
         if tol > 0.0:
+            if after is not None:
+                after += done
             nxt = torch.where(done, cur, nxt)
             done = done | ((nxt - cur).abs().max() <= tol)
         cur = nxt
@@ -305,6 +315,9 @@ class ClusterPending:
     bandwidth: torch.Tensor     # (B,) on the device
     sels: list                  # per shape, the subsamples of each attempt
     generator: object           # draws the retries' subsamples
+    # () int32 on the device: the steps launched after the tol exit,
+    # counted only where a profiler ran when the steps were launched
+    steps_after_exit: torch.Tensor | None = None
 
 
 def cluster_batch_async(x, *, num_samples: int = 10000, quantile=0.015,
@@ -325,10 +338,12 @@ def cluster_batch_async(x, *, num_samples: int = 10000, quantile=0.015,
         x[i], num_samples, np.float32(quantile), generator=generator,
         sel=sels[i][0]), _MIN_BANDWIDTH) for i in range(b)])
     start, cols = _step_inputs(x, e, bf16)
+    after = (torch.zeros((), dtype=torch.int32, device=x.device)
+             if tracing_on() else None)
     shifted = _to_width(_iterate_on_device(
         lambda cur: mean_shift_step_batched(cur, cols, bw, bf16=bf16), start,
-        iterations, tol), x.shape[-1])
-    return ClusterPending(x, e, shifted, bw, sels, generator)
+        iterations, tol, after), x.shape[-1])
+    return ClusterPending(x, e, shifted, bw, sels, generator, after)
 
 
 def cluster_batch_finalize(pending: ClusterPending, *,
@@ -344,11 +359,16 @@ def cluster_batch_finalize(pending: ClusterPending, *,
     x, shifted = pending.x, pending.shifted
     b = x.shape[0]
     bw_host = pending.bandwidth.tolist()
+    if pending.steps_after_exit is not None:
+        count("cluster/ms_steps_run", iterations)
+        count("cluster/ms_steps_needed",
+              iterations - int(pending.steps_after_exit))
     found = [nms_device(shifted[i], x[i], bw_host[i]) for i in range(b)]
     nums = np.asarray(torch.stack([f[2] for f in found]).tolist(), np.int64)
     labels = [f[0] for f in found]
     capped = np.zeros((b,), bool)
     bw_capped = np.zeros((b,), bool)
+    retries = 0
     for i in np.nonzero(nums > max_clusters)[0]:
         first = MeanShiftResult(shifted[i], labels[i], found[i][1],
                                 int(nums[i]), bw_host[i],
@@ -362,6 +382,8 @@ def cluster_batch_finalize(pending: ClusterPending, *,
                        retry_factor=retry_factor)
         labels[i], nums[i] = res.labels, res.num_clusters
         capped[i], bw_capped[i] = res.capped, res.bw_capped
+        retries += res.tries
+    count("cluster/guard_retries", retries)
     return (torch.stack(labels), torch.as_tensor(nums),
             {"capped": capped, "bw_capped": bw_capped})
 

@@ -30,6 +30,7 @@ from sednet_tpu_torch.ops.cuda_kernels import (segsum_sorted_scan,
                                                segsum_sorted_scan_plain)
 from sednet_tpu_torch.ops.flash_topk import flash_topk
 from sednet_tpu_torch.ops.knn import pairwise_sqdist
+from sednet_tpu_torch.utils.tracing import count
 
 TRANSPOSE_MODES = ("scatter", "sorted", "scan", "pallas", "vocab")
 
@@ -106,11 +107,13 @@ def top_eigvecs(a, n: int, device, x0=None, generator=None, k: int = 12,
     a callable v -> a @ v) by LOBPCG (`iters` iterations), each row
     L2-normalised with + 1e-16 (reference: src/smooth_normal_matrix.py:
     198-199). x0: the (n, k) start block, standard normal from `generator`
-    when not given (the tests inject JAX's)."""
+    when not given (the tests inject JAX's). While a profiler runs, the
+    iterations the solve took are the count `lobpcg/iterations`."""
     if x0 is None:
         x0 = torch.randn((n, k), generator=generator, dtype=torch.float32)
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(device)
-    _, u, _ = lobpcg_standard(a, x0, m=iters)
+    _, u, its = lobpcg_standard(a, x0, m=iters)
+    count("lobpcg/iterations", its)
     return u / (torch.linalg.vector_norm(u, dim=-1, keepdim=True) + 1e-16)
 
 

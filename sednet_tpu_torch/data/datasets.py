@@ -29,6 +29,7 @@ the package imports without it; `_H5Dataset` takes arrays in memory.
 from __future__ import annotations
 
 import os
+import time
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -37,6 +38,7 @@ from sednet_tpu_torch.data.augment import (Augmentor, along_normal_noise,
                                            gaussian_noise)
 from sednet_tpu_torch.data.geometry import EPS, pca_align
 from sednet_tpu_torch.data.labels import canonicalize_instance_labels
+from sednet_tpu_torch.utils.tracing import count, span
 
 
 class _H5Dataset:
@@ -238,7 +240,12 @@ class PrefetchLoader:
     counterpart of the reference's DataLoader(num_workers=8,
     persistent_workers=True) (reference: train_sed_net.py:185-187): batch
     assembly (h5 reads, augmentation, PCA alignment) overlaps the step.
-    Order-preserving; `depth` batches at most wait in the queue."""
+    Order-preserving; `depth` batches at most wait in the queue.
+
+    The consumer's wait on the queue is the span `data/prefetch_wait`;
+    the worker times each batch's assembly, and the consumer records it
+    as the count `data/assemble_us` when it takes the batch (a profiler
+    does not see the worker's thread)."""
 
     def __init__(self, loader, depth: int = 2):
         self.loader = loader
@@ -270,8 +277,13 @@ class PrefetchLoader:
 
         def worker():
             try:
-                for batch in self.loader:
-                    if not put(batch):
+                batches = iter(self.loader)
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(batches, end)
+                    if batch is end:
+                        return
+                    if not put((batch, time.perf_counter() - t0)):
                         return
             except BaseException as e:  # raised again in the consumer
                 err.append(e)
@@ -282,10 +294,13 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("data/prefetch_wait"):
+                    item = q.get()
                 if item is end:
                     break
-                yield item
+                batch, seconds = item
+                count("data/assemble_us", seconds * 1e6)
+                yield batch
             t.join()
             if err:
                 raise err[0]

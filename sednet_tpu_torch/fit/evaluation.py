@@ -17,7 +17,7 @@ Fitting_patches_and_edges/residual_utils.py:49-331, src/eval_utils.py:103-175):
 
 Device work runs on the fitter's device; the assignment and the
 bookkeeping stay on the host, as in JAX. `residual_eval_batch` marks its
-three steps with `torch.profiler.record_function` ranges (`STAGES`).
+three steps with spans (`STAGES`, `utils.tracing.span`).
 """
 from __future__ import annotations
 
@@ -25,7 +25,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sednet_tpu_torch.cluster import guard_mean_shift
 from sednet_tpu_torch.device import resolve_device
@@ -39,10 +38,11 @@ from sednet_tpu_torch.metrics import (hungarian_match, relaxed_iou_fast,
                                       to_one_hot)
 from sednet_tpu_torch.ops.chamfer import nn_distance
 from sednet_tpu_torch.ops.guard import guard_exp
+from sednet_tpu_torch.utils.tracing import span
 
 EPS = 1e-8
 
-# the record_function ranges of residual_eval_batch, in the order they run
+# the spans of residual_eval_batch, in the order they run
 STAGES = tuple(f"residual_eval_batch/{s}" for s in ("match", "fits",
                                                      "residuals"))
 
@@ -209,7 +209,7 @@ class Evaluation:
         (loss, parameters, distance)."""
         if not items:
             return []
-        with record_function(STAGES[0]):
+        with span(STAGES[0]):
             costs = _relaxed_costs([it["cluster_ids"] for it in items],
                                    [it["labels"] for it in items],
                                    self.device)
@@ -219,11 +219,11 @@ class Evaluation:
                                               costs[si])
                 segments += seg
                 gt_points.update(gp)
-        with record_function(STAGES[1]):
+        with span(STAGES[1]):
             parameters, _ = fit_one_shape(segments, self.fitter,
                                           eval_mode=True,
                                           if_optimize=if_optimize)
-        with record_function(STAGES[2]):
+        with span(STAGES[2]):
             distance = residual_loss_batched(gt_points, parameters,
                                              sqrt=True, device=self.device)
         out = []

@@ -33,8 +33,9 @@ the retries' subsamples) come from one `torch.Generator` a batch
 (`batch_generator`), drawn in the same order whether the halves of two
 batches interleave or not, and whether a shape's eigenvectors come from
 the cache or not; the tests inject them (`x0s`, `sels`). The stages run
-inside `torch.profiler.record_function` ranges named `STAGES`, so that a
-profile of one call gives each stage's host and device time.
+inside spans named `STAGES` (`utils.tracing.span`: `record_function`
+ranges while a profiler runs), so that a profile of one call gives each
+stage's host and device time.
 """
 from __future__ import annotations
 
@@ -47,7 +48,6 @@ import sys
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sednet_tpu_torch.cluster.mean_shift import (cluster_batch_async,
                                                  cluster_batch_finalize,
@@ -67,6 +67,7 @@ from sednet_tpu_torch.metrics import siou_matched_segments_usecd_batch
 from sednet_tpu_torch.models.sednet import SEDNet, apply_fused
 from sednet_tpu_torch.ops.knn import knn_indices, knn_indices_points_normals
 from sednet_tpu_torch.utils import visual_labels
+from sednet_tpu_torch.utils.tracing import span
 from sednet_tpu_torch.weights import load_checkpoint, load_npz
 
 logger = logging.getLogger("sednet_tpu_torch.predict")
@@ -74,7 +75,7 @@ logger = logging.getLogger("sednet_tpu_torch.predict")
 # bench.py:173 clusters with 5000 samples; the rest are Config's defaults
 HEADLINE = Config(ms_num_samples=5000)
 
-# the record_function ranges of predict_shapes, in the order they run
+# the spans of predict_shapes, in the order they run
 STAGES = tuple(f"predict_shapes/{s}" for s in (
     "type_forward", "inst_forward", "affinity", "lobpcg", "entropy_concat",
     "cluster_batch", "metrics"))
@@ -270,18 +271,18 @@ def spectral_embed(xyz, normals, cfg: Config, shape_id=None,
     matfree = cfg.spectral_matfree
     if matfree is None:
         matfree = xyz.shape[0] > cfg.spectral_dense_max_n
-    with record_function("predict_shapes/affinity"):
+    with span("predict_shapes/affinity"):
         if matfree:
             op = matfree_matvec(xyz, normals, sigma=cfg.spectral_sigma,
                                 knn=cfg.spectral_knn)
         else:
             op = normal_affinity_topk(xyz, normals, sigma=cfg.spectral_sigma,
                                       k=cfg.spectral_knn)
-    with record_function("predict_shapes/lobpcg"):
+    with span("predict_shapes/lobpcg"):
         v = top_eigvecs(op, xyz.shape[0], xyz.device, x0, generator,
                         k=cfg.spectral_eigvecs)
     del op
-    with record_function("predict_shapes/entropy_concat"):
+    with span("predict_shapes/entropy_concat"):
         ent = compute_entropy(v)
     if cache is not None and shape_id is not None:
         cache.put(shape_id, v, ent)
@@ -298,7 +299,7 @@ def enrich_embedding(embedding, xyz, normals, cfg: Config, *, shape_id=None,
     346-365`)."""
     v, ent = spectral_embed(xyz, normals, cfg, shape_id=shape_id,
                             cache=cache, x0=x0, generator=generator)
-    with record_function("predict_shapes/entropy_concat"):
+    with span("predict_shapes/entropy_concat"):
         return _entropy_weighted_concat(embedding, v, cfg.normal_smooth_w,
                                         ent)
 
@@ -337,10 +338,10 @@ def predict_shapes_async(model_type, model_inst, batch: dict, cfg: Config, *,
         forward_fn = make_forward(model_inst, fused=cfg.fused_encoder)
     # one first-layer graph serves the type votes and the inst forward,
     # unless the fused encoder runs (it builds none)
-    with record_function("predict_shapes/type_forward"):
+    with span("predict_shapes/type_forward"):
         idx1 = None if cfg.fused_encoder else make_first_layer_idx(cfg)(x)
         type_lp = tta_fn(x, idx1)
-    with record_function("predict_shapes/inst_forward"):
+    with span("predict_shapes/inst_forward"):
         _, embedding, edge_logits = forward_fn(x, idx1)
 
     b, n = x.shape[:2]
@@ -362,7 +363,7 @@ def predict_shapes_async(model_type, model_inst, batch: dict, cfg: Config, *,
             torch.linalg.vector_norm(embedding, dim=-1, keepdim=True), 1e-12)
 
     kw = cluster_settings(cfg, cfg.num_points)
-    with record_function("predict_shapes/cluster_batch"):
+    with span("predict_shapes/cluster_batch"):
         clusters = cluster_batch_async(
             emb_n.contiguous(), generator=generator, sels=sels,
             num_samples=kw["num_samples"], quantile=kw["quantile"],
@@ -402,7 +403,7 @@ def predict_shapes_finalize(pending: dict) -> list:
     guard_bw_capped."""
     batch, cfg, dev = pending["batch"], pending["cfg"], pending["device"]
     with _after(pending["ready"], dev):
-        with record_function("predict_shapes/cluster_batch"):
+        with span("predict_shapes/cluster_batch"):
             labels, nums, flags = cluster_batch_finalize(
                 pending["clusters"], **cluster_settings(cfg, cfg.num_points))
             labels_np = labels.cpu().numpy()
@@ -410,7 +411,7 @@ def predict_shapes_finalize(pending: dict) -> list:
         edge_prob = (pending["edge_prob"].cpu().numpy()
                      if pending["edge_prob"] is not None else
                      np.zeros(pred_prim.shape + (2,), np.float32))
-        with record_function("predict_shapes/metrics"):
+        with span("predict_shapes/metrics"):
             mets = siou_matched_segments_usecd_batch(
                 [np.asarray(t).astype(np.int64) for t in batch["labels"]],
                 list(labels_np), list(pred_prim),

@@ -59,6 +59,7 @@ from sednet_tpu_torch.losses import (TripletConfig, edge_cls_loss,
                                      pull_push_embedding_loss, triplet_loss)
 from sednet_tpu_torch.models import SEDNet
 from sednet_tpu_torch.models.init import init_like_flax
+from sednet_tpu_torch.utils.tracing import span
 from sednet_tpu_torch.weights import (flatten_tree, load_params,
                                       params_from_flat, read_orbax_tree,
                                       save_params_npz)
@@ -128,8 +129,9 @@ def remap_train_types(prim):
 
 def to_device(batch: dict, device) -> dict:
     """A loader's numpy batch as tensors on `device`."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+    with span("train/to_device"):
+        return {k: torch.from_numpy(np.asarray(v)).to(device)
+                for k, v in batch.items()}
 
 
 def sharded_forward(model: SEDNet, x, mesh=None):
@@ -190,28 +192,36 @@ def make_train_step(model: SEDNet, optimizer: torch.optim.Optimizer,
     global-norm clip, the optimizer's update); metrics are 0-d tensors on
     the model's device. mesh: the data-parallel step (the module
     docstring): every rank passes the whole batch and the same draws, and
-    its gradients are summed over the ranks before the clip."""
+    its gradients are summed over the ranks before the clip. Its phases
+    are the spans `train_step/forward_loss`, `train_step/backward` and
+    `train_step/optimizer` (the zero-fill at the start, and the gradients'
+    fill, reduction, clip and update at the end)."""
     loss_fn = make_loss_fn(model, cfg, mesh)
     params = list(model.parameters())
 
     def train_step(batch, draws=None, generator=None):
-        optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(batch, draws, generator)
-        total.backward()
-        for p in params:
-            # a parameter no loss term reads (the normal head's) has the
-            # gradient 0 under jax.grad, and optax's AdamW still decays it
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if mesh is not None:
-            from sednet_tpu_torch.parallel.mesh import all_reduce_grads
+        with span("train_step/optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("train_step/forward_loss"):
+            total, metrics = loss_fn(batch, draws, generator)
+        with span("train_step/backward"):
+            total.backward()
+        with span("train_step/optimizer"):
+            for p in params:
+                # a parameter no loss term reads (the normal head's) has the
+                # gradient 0 under jax.grad, and optax's AdamW still decays
+                # it
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                from sednet_tpu_torch.parallel.mesh import all_reduce_grads
 
-            all_reduce_grads(params, mesh)
-        if cfg.grad_clip > 0:
-            # clip BEFORE the adam moments, as optax chains it, so that one
-            # spiked batch cannot poison them
-            clip_by_global_norm(params, cfg.grad_clip)
-        optimizer.step()
+                all_reduce_grads(params, mesh)
+            if cfg.grad_clip > 0:
+                # clip BEFORE the adam moments, as optax chains it, so that
+                # one spiked batch cannot poison them
+                clip_by_global_norm(params, cfg.grad_clip)
+            optimizer.step()
         return metrics
 
     return train_step

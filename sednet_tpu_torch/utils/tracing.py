@@ -1,19 +1,22 @@
 """Profiling annotations and numeric guards.
 
-Counterpart of `sednet_tpu/utils/tracing.py:23-66`. A pipeline stage wrapped
-in `trace` is a `torch.profiler.record_function` range (visible in a
-profile of the card, where its device time is attributed to it) and a
-wall-clock stopwatch; `start_profile` / `stop_profile` bracket a
-`torch.profiler` run that writes a Chrome trace; the finiteness guards make
-silent numeric corruption loud. `kernel_launches` reads the launch counts
-of the port's kernel wrappers, so that a process (the server) can report
+Counterpart of `sednet_tpu/utils/tracing.py:23-66`. A `span` is a
+`torch.profiler.record_function` range, entered only while a profiler
+runs on the calling thread: a profile of the card attributes the device
+time (and the idle gaps) to it, and without a profiler it costs one flag
+check. A `count` is a zero-length range named `name=value`, since the
+Chrome export drops a range's arguments. Both are lost on a thread that
+was started after the profiler, which does not profile it: a worker
+hands its numbers to the thread that drives the work. `trace` adds a
+wall-clock stopwatch to a span. The finiteness guards make silent
+numeric corruption loud. `kernel_launches` reads the launch counts of
+the port's kernel wrappers, so that a process (the server) can report
 which kernels its work went through.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
-import os
 import time
 from typing import Dict
 
@@ -21,52 +24,47 @@ import torch
 
 logger = logging.getLogger("sednet_tpu_torch.trace")
 
-_profile = None   # the torch.profiler run between start_ and stop_profile
+_OFF = contextlib.nullcontext()
+# whether a profiler runs on the calling thread: the condition of `span`
+# and `count`, and of any counting the program does only for them
+tracing_on = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager: `torch.profiler.record_function(name)` while a
+    profiler runs on this thread, else nothing."""
+    if not tracing_on():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, value) -> None:
+    """While a profiler runs on this thread, a zero-length range named
+    f"{name}={int(value)}"; else nothing."""
+    if tracing_on():
+        with torch.profiler.record_function(f"{name}={int(value)}"):
+            pass
 
 
 @contextlib.contextmanager
 def trace(name: str, timings: Dict[str, float] | None = None,
           log: bool = False):
-    """torch.profiler.record_function(name) + wall clock. Accumulates the
-    seconds into `timings[name]` when given. The wall clock reads the host:
-    it includes the device's work only where the body waits for it."""
+    """`span(name)` and, where `timings` is given or `log` set, a wall
+    clock: accumulates the seconds into `timings[name]`. The wall clock
+    reads the host: it includes the device's work only where the body
+    waits for it."""
+    if timings is None and not log:
+        with span(name):
+            yield
+        return
     t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with span(name):
         yield
     dt = time.perf_counter() - t0
     if timings is not None:
         timings[name] = timings.get(name, 0.0) + dt
     if log:
         logger.info("%s: %.1fms", name, dt * 1e3)
-
-
-def start_profile(log_dir: str) -> None:
-    """Start a torch.profiler run over the host and, where there is one,
-    the card; `stop_profile` writes its Chrome trace under log_dir."""
-    global _profile
-    if _profile is not None:
-        raise RuntimeError("a profile is already running")
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=acts)
-    prof.start()
-    _profile = (prof, log_dir)
-
-
-def stop_profile() -> str:
-    """Stop the run of `start_profile` and write its Chrome trace; returns
-    the trace's path."""
-    global _profile
-    if _profile is None:
-        raise RuntimeError("no profile is running")
-    prof, log_dir = _profile
-    _profile = None
-    prof.stop()
-    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-    prof.export_chrome_trace(path)
-    return path
 
 
 def _leaves(tree, path=""):

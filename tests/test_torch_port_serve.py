@@ -352,16 +352,17 @@ def test_tracing_helpers(tmp_path, caplog):
         assert tracing.debug_assert_finite(x, "x") is x
     assert "non-finite values in x: 1" in caplog.text
 
-    tracing.start_profile(str(tmp_path / "prof"))
-    with pytest.raises(RuntimeError):
-        tracing.start_profile(str(tmp_path / "prof"))
-    with tracing.trace("profiled"):
-        torch.ones(8).sum()
-    path = tracing.stop_profile()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.trace("profiled"):
+            with tracing.span("profiled/inner"):
+                torch.ones(8).sum()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
     with open(path) as f:
-        assert "profiled" in f.read()
-    with pytest.raises(RuntimeError):
-        tracing.stop_profile()
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"profiled", "profiled/inner"} <= names
 
 
 def test_server_config_snapshot_is_the_bundles(bundles):
