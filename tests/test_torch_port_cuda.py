@@ -1601,3 +1601,79 @@ def test_mean_shift_step_row_shard(cuda, m, n, e):
     plain = ck.mean_shift_step_plain(x[None, r0:r0 + m], x[None],
                                      (1.0 / (bw * bw)).reshape(1))[0]
     torch.testing.assert_close(part, plain, atol=1e-5, rtol=0)
+
+
+# The LOBPCG iteration replayed as CUDA graphs (`cluster/lobpcg.py`): a
+# key's first solve runs eagerly, its second captures and replays. The
+# replayed kernels are the eager ones, so every solve is the eager bits.
+def _affinity(seed, n, device):
+    from sednet_tpu_torch.cluster.spectral import normal_affinity_topk
+
+    d = make_synthetic_shape(np.random.RandomState(seed), n_points=n)
+    xyz, nrm = (torch.from_numpy(d[k].astype(np.float32)).to(device)
+                for k in ("points", "normals"))
+    return normal_affinity_topk(xyz, nrm)
+
+
+def _start_block(seed, n, k=12):
+    return torch.randn((n, k), generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.fixture
+def replays():
+    from sednet_tpu_torch.cluster import lobpcg
+
+    lobpcg._REPLAYS.clear()
+    yield lobpcg
+    lobpcg._REPLAYS.clear()
+
+
+@pytest.mark.cuda
+def test_lobpcg_replay_is_the_eager_solve_bit_for_bit(cuda, replays):
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 10000
+    for seed in (0, 1):
+        a = _affinity(seed, n, cuda)
+        x0 = _start_block(seed, n).to(cuda)
+        replays._REPLAYS.clear()
+        eager = replays.lobpcg_standard(a, x0, m=10)
+        assert not replays._REPLAYS.replays
+        captured = replays.lobpcg_standard(a, x0, m=10)
+        assert len(replays._REPLAYS.replays) == 1
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            replayed = replays.lobpcg_standard(a, x0, m=10)
+        names = {e.key for e in prof.key_averages()}
+        assert f"lobpcg/replayed={eager[2]}" in names
+        for got in (captured, replayed):
+            assert got[2] == eager[2]
+            assert torch.equal(got[0], eager[0])
+            assert torch.equal(got[1], eager[1])
+
+
+@pytest.mark.cuda
+def test_lobpcg_replays_return_the_callers_own_tensors(cuda, replays):
+    n = 4000
+    a, b = _affinity(2, n, cuda), _affinity(3, n, cuda)
+    x0 = _start_block(2, n).to(cuda)
+    replays.lobpcg_standard(a, x0, m=10)
+    theta_a, u_a, _ = replays.lobpcg_standard(a, x0, m=10)
+    assert len(replays._REPLAYS.replays) == 1
+    kept = (theta_a.clone(), u_a.clone())
+    theta_b, u_b, _ = replays.lobpcg_standard(b, x0, m=10)
+    assert not torch.equal(u_a, u_b)
+    assert torch.equal(theta_a, kept[0]) and torch.equal(u_a, kept[1])
+
+
+@pytest.mark.cuda
+def test_lobpcg_key_seen_once_captures_nothing(cuda, replays):
+    n = 3000
+    a = _affinity(4, n, cuda)
+    x0 = _start_block(4, n).to(cuda)
+    replays.lobpcg_standard(a, x0, m=10)
+    assert not replays._REPLAYS.replays and not replays._REPLAYS.failed
+    # another shape is another key; a callable operator never captures
+    replays.lobpcg_standard(a[:2999, :2999].contiguous(), x0[:2999], m=10)
+    for _ in range(2):
+        replays.lobpcg_standard(lambda v: a @ v, x0, m=10)
+    assert not replays._REPLAYS.replays and not replays._REPLAYS.failed

@@ -28,7 +28,8 @@ STREAM_SPANS = {f"predict_shapes/{s}" for s in (
     "type_forward", "inst_forward", "affinity", "lobpcg", "entropy_concat",
     "cluster_batch", "metrics")}
 STREAM_COUNTS = ("cluster/ms_steps_run", "cluster/ms_steps_needed",
-                 "cluster/guard_retries", "lobpcg/iterations")
+                 "cluster/guard_retries", "lobpcg/iterations",
+                 "lobpcg/replayed")
 TRAIN_SPANS = {"train_step/forward_loss", "train_step/backward",
                "train_step/optimizer", "train/to_device",
                "data/prefetch_wait"}
@@ -145,7 +146,7 @@ def test_stream_exports_its_spans_and_counts(stream_runs):
         values = [int(n.split("=", 1)[1]) for n, t in ranges
                   if n.startswith(name + "=") and t == tid]
         # one a batch, one LOBPCG solve a shape
-        assert len(values) == (4 if name == "lobpcg/iterations" else 2), name
+        assert len(values) == (4 if name.startswith("lobpcg/") else 2), name
     iters = stream_runs["cfg"].ms_iterations
     run = counted(ranges, "cluster/ms_steps_run")
     needed = counted(ranges, "cluster/ms_steps_needed")
@@ -168,6 +169,15 @@ def test_lobpcg_iterations_count_is_what_the_solve_returned(stream_runs):
     assert all(1 <= i <= 10 for i in stream_runs["its"])
 
 
+def test_stream_solves_each_cloud_once_through_the_module_global(
+        stream_runs):
+    # `top_eigvecs` looks `lobpcg_standard` up in `cluster.spectral` at each
+    # call (what a hook rebinding it sees): one call a cloud, 2 x 2 clouds
+    assert len(stream_runs["its"]) == 4
+    # the CPU solves eagerly: no iteration is replayed
+    assert counted(stream_runs["ranges"], "lobpcg/replayed") == [0] * 4
+
+
 def test_top_eigvecs_counts_each_solve(tmp_path, monkeypatch):
     g = torch.Generator().manual_seed(0)
     m = torch.randn(60, 60, generator=g)
@@ -185,6 +195,141 @@ def test_top_eigvecs_counts_each_solve(tmp_path, monkeypatch):
         tmp_path / "t.json")
     assert its[0] == 1
     assert counted(ranges, "lobpcg/iterations") == its
+
+
+def _solve_before_replay(a, x, m, tol=None):
+    """`cluster/lobpcg.py lobpcg_standard` as it stood before its steps
+    became generators and its iteration a CUDA-graph replay on the card:
+    the reference whose bits the CPU solve keeps."""
+    def norms(x):
+        return torch.linalg.vector_norm(x, dim=0, keepdim=True)
+
+    def eigh_desc(a):
+        w, v = torch.linalg.eigh(a)
+        return w.flip(0), v.flip(1)
+
+    def svqb(x):
+        nx = norms(x)
+        x = x / torch.where(nx == 0, 1.0, nx)
+        inner = x.T @ x
+        w, v = eigh_desc(inner)
+        tau = torch.finfo(x.dtype).eps * w[0]
+        padded = torch.maximum(w, tau)
+        sqrted = torch.where(tau > 0, padded, 1.0) ** -0.5
+        ortho = x @ (v * sqrted[None, :])
+        keep = ((w > tau) & (torch.diagonal(inner) > 0.0))[None, :]
+        ortho = ortho * keep.to(ortho.dtype)
+        no = norms(ortho)
+        keep = keep & (no > 0.0)
+        return ortho / torch.where(keep, no, 1.0)
+
+    def orth(b):
+        return svqb(svqb(b))
+
+    def project_out(basis, u):
+        for _ in range(2):
+            u = orth(u - basis @ (basis.T @ u))
+        for _ in range(2):
+            u = u - basis @ (basis.T @ u)
+        return u * (norms(u) >= 0.99).to(u.dtype)
+
+    def extend(x, m):
+        n, k = x.shape
+        upper, lower = x[:k], x[k:]
+        u, s, vt = torch.linalg.svd(upper)
+        y = torch.cat([upper + u @ vt, lower], 0)
+        other = torch.cat([torch.eye(m), torch.zeros((n - k - m, m))], 0)
+        w = y @ (vt.T * ((2 * (1 + s)) ** -0.5)[None, :])
+        h = -2 * torch.linalg.multi_dot([w, w[k:, :].T, other])
+        h[k:] += other
+        return h
+
+    matvec = a if callable(a) else (lambda v: a @ v)
+    n, k = x.shape
+    tol = float(torch.finfo(x.dtype).eps) if tol is None else tol
+    x = orth(x)
+    p = extend(x, k)
+    ax = matvec(x)
+    theta = (x * ax).sum(0, keepdim=True)
+    r = ax - theta * x
+    i, converged = 0, 0
+    while i < m and converged < k:
+        r = project_out(torch.cat((x, p), 1), r)
+        xpr = torch.cat((x, p, r), 1)
+        theta, q = eigh_desc(xpr.T @ matvec(xpr))
+        b = q[:, :k]
+        x = xpr @ (b / norms(b))
+        x = x / norms(x)
+        qq, _ = torch.linalg.qr(q[:k, k:].T)
+        p = xpr @ (q[:, k:] @ qq)
+        norm_p = norms(p)
+        p = p / torch.where(norm_p == 0, 1.0, norm_p)
+        ax = matvec(x)
+        r = ax - theta[None, :k] * x
+        resid = torch.linalg.vector_norm(r, dim=0)
+        reltol = (torch.linalg.vector_norm(ax, dim=0) + theta[:k]) * n * 10
+        converged = int((resid < tol * reltol).sum())
+        theta = theta[None, :k]
+        i += 1
+    return theta[0], x, i
+
+
+@pytest.mark.parametrize("n,k,m,dense", [(300, 12, 10, True),
+                                         (300, 12, 10, False),
+                                         (500, 8, 100, True),
+                                         (60, 4, 0, True)])
+def test_cpu_solve_is_the_loop_before_replay(n, k, m, dense, tmp_path):
+    from sednet_tpu_torch.cluster import lobpcg
+
+    g = torch.Generator().manual_seed(n + k)
+    b = torch.randn(n, n, generator=g)
+    a = b @ b.T / n
+    x0 = torch.randn(n, k, generator=g)
+    op = a if dense else (lambda v: a @ v)
+    want = _solve_before_replay(op, x0, m)
+    # the same key twice: the second solve of a key would capture on the card
+    solves, ranges, _ = profiled(
+        lambda: [lobpcg.lobpcg_standard(op, x0, m=m) for _ in range(2)],
+        tmp_path / "t.json")
+    for theta, u, its in solves:
+        assert its == want[2]
+        assert torch.equal(theta, want[0]) and torch.equal(u, want[1])
+    assert counted(ranges, "lobpcg/replayed") == [0, 0]
+    assert not lobpcg._REPLAYS.replays and not lobpcg._REPLAYS.seen
+
+
+def test_replays_capture_at_a_keys_second_solve_and_drop_the_oldest(
+        monkeypatch):
+    from sednet_tpu_torch.cluster import lobpcg
+
+    made = []
+
+    class Captured:
+        def __init__(self, a, x, p, r, tol):
+            if a.shape[0] == 13:
+                raise RuntimeError("operation not permitted when capturing")
+            made.append(x.shape)
+
+    monkeypatch.setattr(lobpcg, "_Replay", Captured)
+    cache = lobpcg._Replays(size=2)
+
+    def get(n):
+        x = torch.zeros(n, 2)
+        return cache.get(torch.zeros(n, n), x, x, x, 1e-7)
+
+    assert get(10) is None and made == []
+    first = get(10)
+    assert isinstance(first, Captured) and made == [(10, 2)]
+    assert get(10) is first and len(made) == 1
+    assert get(11) is None and isinstance(get(11), Captured)
+    assert get(12) is None and isinstance(get(12), Captured)
+    # 10 was the least recently used of three
+    assert [key[1] for key in cache.replays] == [11, 12]
+    assert get(10) is None and isinstance(get(10), Captured)
+    # a failed capture leaves the key eager, and is not tried again
+    assert get(13) is None and get(13) is None
+    assert get(13) is None and len(made) == 4
+    assert [key[1] for key in cache.failed] == [13]
 
 
 # --- the clustering's counts ------------------------------------------------
